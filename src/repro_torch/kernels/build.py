@@ -1,0 +1,86 @@
+"""Build and load the port's CUDA kernels at first use.
+
+Each kernel source under ``csrc/`` has a plain C interface (no PyTorch
+headers), so ``nvcc`` compiles it in seconds into a shared library that
+is loaded with :mod:`ctypes`. The library lands in a build directory
+outside the package — ``build/repro_torch_kernels/`` at the root of the
+checkout, or ``$REPRO_TORCH_BUILD_DIR`` — named by a hash of the source
+and the flags, so an edited source never loads a stale binary.
+
+Nothing here runs when the package is imported: a machine without
+``nvcc`` can import every module, and only asking for a kernel raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+
+#: Hopper with the architecture-specific feature set (wgmma, setmaxnreg)
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+#: name -> (library path, seconds the compile took; 0.0 when reused)
+BUILD_LOG: Dict[str, Tuple[str, float]] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    # src/repro_torch/kernels/build.py -> the checkout's root
+    return Path(__file__).resolve().parents[3] / "build" \
+        / "repro_torch_kernels"
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME, $CUDA_PATH and "
+        "/usr/local/cuda): the CUDA kernels of repro_torch are compiled "
+        "at first use and cannot be built on this host")
+
+
+def load_kernel(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its library is not built yet, load
+    it and return the handle. Raises on any build or load failure."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"lib{name}_{digest}.so"
+    seconds = 0.0
+    if not so.exists():
+        tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so)           # atomic: no reader sees a partial
+    lib = ctypes.CDLL(str(so))
+    _LOADED[name] = lib
+    BUILD_LOG[name] = (str(so), seconds)
+    return lib
