@@ -3,29 +3,49 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once at the full width of gpt_145b
-(80 layers, d_model 12288, d_ff 49152): ``DistSim.serve()`` answers the
-whole 1f1b+gpipe power-of-two strategy grid for 1024 devices (global
-batch 2048, seq 2048) as ONE mega-batch program scored by the
-hand-written Hopper scan kernel, cold and then warm. Around that it
+Drives the port's two paths once, each at full width, each with its
+kernels' launch counts set to 0 just before it and read just after:
 
-* builds the kernel from the sources in the checkout (``nvcc``, sm_90a);
-* holds the kernel against its plain PyTorch version — bit-identical
-  ``ends`` and ``starts`` — on seeded random programs and on the
-  full-width program, and times both there;
-* shows that the serve path launched the kernel (launch count reset
-  just before the path, read just after);
+* the serve path (gpt_145b: 80 layers, d_model 12288, d_ff 49152):
+  ``DistSim.serve()`` answers the whole 1f1b+gpipe power-of-two strategy
+  grid for 1024 devices (global batch 2048, seq 2048) as ONE mega-batch
+  program scored by the hand-written Hopper scan kernel (K1), cold and
+  then warm;
+* the model path (h2o_danube_1_8b: 24 layers, d_model 2560, 32 heads
+  over 8 KV heads, head_dim 80, window 4096; random bf16 weights from a
+  seeded generator on the card): a B=2 x S=8192 prefill through
+  ``make_prefill_step`` with ``attn_impl="cuda"`` (the flash-attention
+  kernel K2, once a layer), decode through ``make_serve_step``, and the
+  final norm's input through ``ops.rmsnorm`` (kernel K3, whose only
+  entry is that public op: the reference's model never calls it).
+
+Around that it
+
+* builds the three kernels from the sources in the checkout (``nvcc``,
+  sm_90a, one process per source, all started together);
+* holds every kernel against its plain PyTorch version on the inputs the
+  paths gave it (K1 bit-identical; K2 within two bf16 ulps, and on the
+  same q, k, v upcast to fp32 at 2e-5; K3 at 2e-2 in bf16) and on
+  seeded cases (K2 and K3 also in fp32 at 2e-5 / 1e-5, TF32 off), and
+  times kernel, plain version and a PyTorch library call there;
+* checks the model's outputs by the repo's own means: prefill logits
+  against the plain ``flash_torch`` attention path (in fp32 at 1e-4 x
+  max |logit|; in bf16 the kernel path no further from the fp32 logits
+  than 1.5 x the plain path), and fp32 decode against the fp32 forward
+  at the reference's decode bar (2e-3);
 * profiles the unique events of one full-width pipeline stage with
   ``TorchMeasuredProvider`` on the card.
 
 Every phase prints one JSON object on a line of its own (``env``,
-``build``, ``kernels``, ``profile``, ``serve``); the last line is
-``{"ok": true, "device": {...}}``. Any failed check raises: the run
-exits non-zero and prints no last line. There is no CPU mode — without
-a CUDA device the script exits with code 2 before doing anything.
+``build``, then ``kernels``, ``profile``, ``model``, ``serve``); then
+the card's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``. Any failed check raises: the run exits non-zero and
+prints no last line. There is no CPU mode — without a CUDA device the
+script exits with code 2 before doing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -38,14 +58,33 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM datasheet peaks used for the kernel's bound
+# H100 SXM datasheet peaks used for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 33.5e12          # vector fp64 (no tensor cores used)
+BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor cores
+FP32_FLOPS_PER_S = 67e12            # fp32 outside the tensor cores
+
+KERNELS = ("megabatch_scan", "flash_attention", "rmsnorm")
+
+# K2 against its plain version. Both compute in fp32 and differ only in
+# summation order, so a bf16 output may differ by a rounding step: two
+# bf16 ulps (2^-6 relative) allow for it and stay far below the ~0.02
+# typical |out| of a full 4096-key window, where losing one 64-key tile
+# moves an output by ~0.003. In fp32 the reference's 2e-5.
+K2_BF16_TOL = {"atol": 1e-5, "rtol": 2.0 ** -6}
+K2_FP32_TOL = {"atol": 2e-5, "rtol": 2e-5}
+# profiler activity types that are work on the device
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
 ARCH = "gpt_145b"
 N_DEVICES, GLOBAL_BATCH, SEQ = 1024, 2048, 2048
 MAX_MP, MAX_PP = 64, 64             # <= 96 heads, <= 80 layers
 CLUSTER = "h100-cluster"
+
+MODEL_ARCH = "h2o_danube_1_8b"
+PREFILL_BATCH, PREFILL_SEQ = 2, 8192  # window 4096: active for half
+PROMPT = 64                           # fp32 decode == forward check
+DECODE_BATCH, DECODE_STEPS = 8, 256
 
 
 def log(msg: str) -> None:
@@ -154,18 +193,26 @@ def phase_env() -> dict:
             "cuda": torch.version.cuda, "nvcc": " / ".join(nvcc)}
 
 
-def phase_build(scan) -> dict:
+def phase_build(wrappers) -> dict:
+    """Compile all kernels at once (one nvcc each, in parallel), then
+    bind each wrapper to its library."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    scan._library()
+    build.load_kernels(KERNELS)
+    for w in wrappers:
+        w._library()
     seconds = time.perf_counter() - t0
-    path, nvcc_seconds = build.BUILD_LOG["megabatch_scan"]
-    return {"phase": "build", "kernel": "megabatch_scan",
-            "source": "src/repro_torch/kernels/csrc/megabatch_scan.cu",
+    rows, dirs = [], set()
+    for name in KERNELS:
+        path, nvcc_seconds = build.BUILD_LOG[name]
+        dirs.add(os.path.relpath(os.path.dirname(path), HERE))
+        rows.append({"name": name,
+                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                     "nvcc_seconds": nvcc_seconds,
+                     "library": os.path.basename(path)})
+    return {"phase": "build", "kernels": rows,
             "flags": list(build.NVCC_FLAGS), "seconds": seconds,
-            "nvcc_seconds": nvcc_seconds,
-            "directory": os.path.relpath(os.path.dirname(path), HERE),
-            "library": os.path.basename(path)}
+            "directory": sorted(dirs)}
 
 
 def check_random_programs(scan, device) -> list:
@@ -298,7 +345,7 @@ def port_config(name: str):
     return get_config(name)
 
 
-def phase_kernels(scan, mb, launches: int, random_rows: list) -> dict:
+def kernel_k1(scan, mb, launches: int, random_rows: list) -> dict:
     """K1 against its plain version on the full-width program, with
     times and the bound computed from this run's inputs."""
     p = mb.device_planes()
@@ -339,7 +386,7 @@ def phase_kernels(scan, mb, launches: int, random_rows: list) -> dict:
     flops = live * 6
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP64_FLOPS_PER_S * 1e3
-    return {"kernels": [{
+    return {
         "name": "megabatch_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/megabatch_scan.cu",
         "replaces": "src/repro/kernels/megabatch_scan.py:91",
@@ -353,7 +400,7 @@ def phase_kernels(scan, mb, launches: int, random_rows: list) -> dict:
         "bound_bytes": nbytes, "chain_steps": mb.T,
         "ns_per_chain_step": ms * 1e6 / mb.T,
         "random_programs": random_rows,
-    }]}
+    }
 
 
 def phase_profile(port) -> dict:
@@ -401,6 +448,483 @@ def phase_profile(port) -> dict:
             "measured_over_analytical_max": float(max(ratio))}
 
 
+
+
+# --------------------------------------------------------------------------
+# the model path
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def capture_inputs(ops, layers, final_norm):
+    """While the model runs, keep the first ``ops.flash_attention`` call's
+    arguments (layer 0's post-rope q, k, v) and the input of the final
+    norm, so the kernels can be held against their plain versions on
+    exactly what the path gave them. The calls themselves go through."""
+    got = {}
+    real_fa, real_norm = ops.flash_attention, layers.rmsnorm
+
+    def fa_spy(q, k, v, q_pos=None, k_pos=None, **kw):
+        got.setdefault("attention", (q, k, v, kw))
+        return real_fa(q, k, v, q_pos, k_pos, **kw)
+
+    def norm_spy(x, scale, *args, **kw):
+        if scale is final_norm:
+            got["final_norm_input"] = x
+        return real_norm(x, scale, *args, **kw)
+
+    ops.flash_attention, layers.rmsnorm = fa_spy, norm_spy
+    try:
+        yield got
+    finally:
+        ops.flash_attention, layers.rmsnorm = real_fa, real_norm
+
+
+def event_ms(fn):
+    """(result, milliseconds) of one call, timed with CUDA events."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def phase_model(fa, rn):
+    """h2o_danube_1_8b at full width: bf16 prefill through K2 (counted),
+    checked against the plain attention path; the final norm through
+    K3's public entry (counted); fp32 decode == fp32 forward; bf16
+    greedy decode. Returns the JSON line, the captured kernel inputs
+    and the launches each kernel made on its path."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    cfg = port_config(MODEL_ARCH)
+    dev = torch.device("cuda")
+    opts = L.ModelOptions(dtype=torch.bfloat16, attn_impl="cuda")
+    plain_opts = L.ModelOptions(dtype=torch.bfloat16, attn_impl="flash_torch")
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev,
+                            opts)
+    n_params = sum(t.numel() for t in _leaves(params))
+    tok_gen = torch.Generator(dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_BATCH,
+                                                    PREFILL_SEQ),
+                                     generator=tok_gen, device=dev,
+                                     dtype=torch.int32)}
+    log(f"model: {MODEL_ARCH} full width, {n_params} parameters; prefill "
+        f"B={PREFILL_BATCH} S={PREFILL_SEQ}")
+
+    prefill = make_prefill_step(cfg, opts)
+    with capture_inputs(ops, L, params["final_norm"]) as captured:
+        fa.LAUNCHES = 0                     # just before the prefill
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        k2_launches = fa.LAUNCHES           # just after
+    check(k2_launches == cfg.n_layers,
+          f"prefill launched K2 {k2_launches}x, expected {cfg.n_layers}")
+    check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab),
+          f"prefill logits of shape {tuple(logits.shape)}")
+    last = logits[:, -128:].float()
+    check(bool(torch.isfinite(last).all()), "prefill logits not finite")
+    del logits
+    prefill_ms = [event_ms(lambda: prefill(params, batch))[1]
+                  for _ in range(3)]
+    median_ms = sorted(prefill_ms)[1]
+
+    plain_logits, plain_ms = event_ms(
+        lambda: make_prefill_step(cfg, plain_opts)(params, batch))
+    plain_last = plain_logits[:, -128:].float()
+    del plain_logits
+    log(f"model: prefill {median_ms:.1f} ms (flash_torch {plain_ms:.1f} ms)")
+
+    # K3's path: its public entry on the final norm's input
+    x = captured["final_norm_input"]
+    rn.LAUNCHES = 0                         # just before
+    normed = ops.rmsnorm(x, params["final_norm"])
+    torch.cuda.synchronize()
+    k3_launches = rn.LAUNCHES               # just after
+    check(k3_launches == 1, f"ops.rmsnorm launched K3 {k3_launches}x")
+    norm_err = max_abs_diff(normed.float(),
+                            L.rmsnorm(x, params["final_norm"]).float())
+    check(torch.allclose(normed.float(),
+                         L.rmsnorm(x, params["final_norm"]).float(),
+                         atol=2e-2, rtol=2e-2),
+          f"ops.rmsnorm != layers.rmsnorm (max abs err {norm_err})")
+
+    # the same weights in fp32 (the bf16 ones are their rounding)
+    opts32 = L.ModelOptions(dtype=torch.float32, attn_impl="cuda")
+    params32 = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev,
+                              opts32)
+    logits_check = check_prefill_logits(cfg, params32, batch, last,
+                                        plain_last)
+    decode_check = check_decode_fp32(cfg, params32, dev)
+    del params32
+    torch.cuda.empty_cache()
+
+    log(f"model: bf16 greedy decode, B={DECODE_BATCH}, {DECODE_STEPS} steps")
+    step = make_serve_step(cfg, opts)
+    cache = lm.init_cache(cfg, DECODE_BATCH, PREFILL_SEQ, opts, dev)
+    tok = torch.randint(0, cfg.vocab, (DECODE_BATCH, 1), generator=tok_gen,
+                        device=dev, dtype=torch.int32)
+    out, cache = step(params, cache, {"tokens": tok})   # warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        tok = out.argmax(dim=-1, keepdim=True).to(torch.int32)
+        out, cache = step(params, cache, {"tokens": tok})
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(out).all()), "decode logits not finite")
+    check(cache["pos"].tolist() == [DECODE_STEPS + 1] * DECODE_BATCH,
+          "decode positions did not advance")
+    decode_profile = device_breakdown(lambda: [
+        step(params, cache, {"tokens": tok}) for _ in range(4)])
+    prefill_profile = device_breakdown(lambda: prefill(params, batch))
+
+    line = {
+        "phase": "model", "arch": MODEL_ARCH, "parameters": n_params,
+        "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "window": cfg.sliding_window,
+        "dtype": "bfloat16", "weights": "random, torch.Generator seed 0",
+        "prefill": {
+            "batch": PREFILL_BATCH, "seq": PREFILL_SEQ, "attn_impl": "cuda",
+            "k2_launches": k2_launches, "ms_median": median_ms,
+            "ms": prefill_ms,
+            "tokens_per_s": PREFILL_BATCH * PREFILL_SEQ / median_ms * 1e3,
+            "flash_torch_ms": plain_ms},
+        "logits_check": logits_check,
+        "rmsnorm_entry": {"k3_launches": k3_launches,
+                          "max_abs_err_vs_layers_rmsnorm": norm_err},
+        "decode_check": decode_check,
+        "decode": {"batch": DECODE_BATCH, "steps": DECODE_STEPS,
+                   "seconds": decode_s,
+                   "tokens_per_s": DECODE_BATCH * DECODE_STEPS / decode_s,
+                   "ms_per_step": decode_s / DECODE_STEPS * 1e3,
+                   "cache_slots": int(cache["attn"]["k"].shape[2]),
+                   "profile_4_steps": decode_profile},
+        "prefill_profile": prefill_profile,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+    captured["final_norm"] = params["final_norm"]
+    launches = {"flash_attention": k2_launches, "rmsnorm": k3_launches}
+    return line, captured, launches
+
+
+def is_device_work(e) -> bool:
+    """A kernel, copy or memset on the card's timeline. The profiler's
+    device rows also hold user annotations that span their kernels
+    (``aten::mm``) and overhead records (``Command Buffer Full``):
+    counted with the kernels they put the busy share above 1."""
+    from torch.autograd import DeviceType
+    kind = getattr(e, "activity_type", None)
+    if kind is not None:
+        return kind in DEVICE_WORK
+    return (e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("aten::")
+            and e.name != "Command Buffer Full")
+
+
+def device_breakdown(fn, top: int = 8) -> dict:
+    """``torch.profiler`` over one call of ``fn``: the device's busy time
+    (the union of the intervals of its kernels, copies and memsets),
+    that time's share of the wall time, and the ``top`` kernels by
+    device time. Fails if the share exceeds 1."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    work = [e for e in prof.events() if is_device_work(e)]
+    check(bool(work), "the profiler saw no work on the device")
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in work):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in work:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    device_us = sum(us for _, us in by_name.values())
+    share = busy_us / wall_us
+    check(share <= 1.0, f"device busy {busy_us} us of {wall_us} us wall")
+    rows = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
+    return {"wall_us": wall_us, "device_busy_us": busy_us,
+            "device_busy_share": share, "device_us": device_us,
+            "kernel_launches": len(work),
+            "counted": "activity_type" if getattr(
+                work[0], "activity_type", None) is not None else "names",
+            "top": [{"kernel": name[:120], "count": n, "device_us": us,
+                     "share": us / device_us}
+                    for name, (n, us) in rows[:top]]}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def check_prefill_logits(cfg, params32, batch, last_bf16, plain_bf16):
+    """The prefill's last 128 positions, kernel path against the plain
+    ``flash_torch`` path. In fp32 the two are held to 1e-4 x max |logit|.
+    In bf16 both carry the whole model's bf16 rounding, which over 24
+    full-width layers alone differs between the two plain paths by
+    about that much; so there the kernel path's distance from the fp32
+    logits is held to at most 1.5 x the plain path's distance."""
+    from repro_torch.models import layers as L
+    from repro_torch.train.step import make_prefill_step
+    log("model: fp32 prefill, kernel path and flash_torch path")
+    out = {}
+    for impl in ("cuda", "flash_torch"):
+        opts = L.ModelOptions(dtype=torch.float32, attn_impl=impl)
+        logits = make_prefill_step(cfg, opts)(params32, batch)
+        out[impl] = logits[:, -128:].clone()
+        del logits
+    ref = out["flash_torch"]
+    top = float(ref.abs().max())
+    fp32_diff = max_abs_diff(out["cuda"], ref)
+    check(bool(torch.isfinite(out["cuda"]).all()),
+          "fp32 prefill logits not finite")
+    check(fp32_diff <= 1e-4 * top,
+          f"fp32 prefill logits differ from the flash_torch path by "
+          f"{fp32_diff} (max |logit| {top})")
+    kernel_err = max_abs_diff(last_bf16, ref)
+    plain_err = max_abs_diff(plain_bf16, ref)
+    check(kernel_err <= 1.5 * plain_err,
+          f"bf16 kernel path is {kernel_err} from the fp32 logits, the "
+          f"plain path {plain_err}")
+    return {"positions": "last 128", "max_abs_logit_fp32": top,
+            "fp32_kernel_vs_flash_torch": fp32_diff,
+            "fp32_tolerance": "1e-4 x max |logit|",
+            "bf16_kernel_vs_flash_torch": max_abs_diff(last_bf16,
+                                                       plain_bf16),
+            "bf16_kernel_path_vs_fp32": kernel_err,
+            "bf16_flash_torch_path_vs_fp32": plain_err,
+            "bf16_tolerance": "kernel path within 1.5 x the plain path's "
+                              "distance from fp32"}
+
+
+def check_decode_fp32(cfg, params, dev) -> dict:
+    """fp32 weights, B=2: a PROMPT-token prompt fed one token at a time
+    from ``init_cache(2, 8192)`` against the fp32 prefill (through the
+    fp32 K2), step by step at the reference's bar."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    log(f"model: fp32 decode == forward over {PROMPT} tokens")
+    opts = L.ModelOptions(dtype=torch.float32, attn_impl="cuda")
+    prompt = torch.randint(0, cfg.vocab, (2, PROMPT), device=dev,
+                           generator=torch.Generator(dev).manual_seed(2),
+                           dtype=torch.int32)
+    full = make_prefill_step(cfg, opts)(params, {"tokens": prompt})
+    step = make_serve_step(cfg, opts)
+    cache = lm.init_cache(cfg, 2, PREFILL_SEQ, opts, dev)
+    worst = 0.0
+    for i in range(PROMPT):
+        logits, cache = step(params, cache, {"tokens": prompt[:, i:i + 1]})
+        want = full[:, i]
+        worst = max(worst, max_abs_diff(logits, want))
+        check(bool(torch.isfinite(logits).all()) and torch.allclose(
+            logits, want, atol=2e-3, rtol=2e-3),
+            f"fp32 decode step {i} != forward (max abs diff {worst})")
+    return {"dtype": "float32", "batch": 2, "prompt": PROMPT,
+            "max_abs_diff": worst, "max_abs_logit": float(full.abs().max()),
+            "tolerance": "atol = rtol = 2e-3"}
+
+
+# --------------------------------------------------------------------------
+# K2 and K3 against their plain versions
+# --------------------------------------------------------------------------
+
+def band_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """Valid (q, k) pairs of one (batch, head) under the masks."""
+    q = np.arange(sq)
+    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def seeded_qkv(shape, dtype, seed=0):
+    b, s, h, kh, hd = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn(dims, generator=g, device="cuda").to(dtype)
+            for dims in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
+
+
+def kernel_k2(fa, captured, launches: int) -> dict:
+    q, k, v, kw = captured["attention"]
+    causal, window = kw["causal"], kw["window"]
+
+    def kernel():
+        return fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    ms = timed_ms(kernel, reps=5)
+    log(f"kernels: K2 {ms:.2f} ms on layer 0's q, k, v; plain version")
+    plain, plain_ms = event_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=causal, window=window))
+    err = max_abs_diff(out.float(), plain.float())
+    check(torch.allclose(out.float(), plain.float(), **K2_BF16_TOL),
+          f"K2 != plain version on the model's layer (max abs err {err})")
+    mean_abs_out = float(plain.float().abs().mean())
+    del plain
+    # the same q, k, v in fp32: the kernel is IEEE fp32 inside, so here
+    # only summation order separates it from the plain version
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    got32 = fa.flash_attention_cuda(q32, k32, v32, causal=causal,
+                                    window=window)
+    torch.cuda.synchronize()
+    want32 = fa.flash_attention_plain(q32, k32, v32, causal=causal,
+                                      window=window)
+    err32 = max_abs_diff(got32, want32)
+    check(torch.allclose(got32, want32, **K2_FP32_TOL),
+          f"K2 != plain version on the model's layer in fp32 (max abs err "
+          f"{err32})")
+    del q32, k32, v32, got32, want32
+
+    b, s, h, hd = q.shape
+    i = torch.arange(s, device="cuda")
+    band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+    lib_out = library()
+    torch.cuda.synchronize()
+    library_ms = timed_ms(library, reps=3)
+    library_err = max_abs_diff(lib_out.transpose(1, 2).float(), out.float())
+    del lib_out, band
+
+    cases = []
+    shapes = [((1, 128, 4, 4, 64), c, None) for c in (True, False)] \
+        + [((2, 256, 4, 2, 64), c, None) for c in (True, False)] \
+        + [((1, 200, 8, 2, 32), c, None) for c in (True, False)] \
+        + [((2, 64, 2, 1, 128), c, None) for c in (True, False)] \
+        + [((1, 160, 4, 2, 32), True, w) for w in (16, 64, 1000)] \
+        + [((1, 300, 8, 2, 80), True, 64), ((1, 150, 8, 2, 80), False, 40)]
+    for shape, c, w in shapes:
+        for dtype, tol in ((torch.float32, K2_FP32_TOL),
+                           (torch.bfloat16, K2_BF16_TOL)):
+            sq, sk, sv = seeded_qkv(shape, dtype)
+            got = fa.flash_attention_cuda(sq, sk, sv, causal=c, window=w)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(sq, sk, sv, causal=c, window=w)
+            e = max_abs_diff(got.float(), want.float())
+            check(torch.allclose(got.float(), want.float(), **tol),
+                  f"K2 != plain version on {shape} causal={c} window={w} "
+                  f"{dtype} (max abs err {e})")
+            cases.append({"shape": list(shape), "causal": c, "window": w,
+                          "dtype": str(dtype).split(".")[-1],
+                          "max_abs_err": e, "tolerance": tol})
+
+    pairs = band_pairs(s, k.shape[1], causal, window) * b * h
+    flops = 4 * hd * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:74",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms,
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   "attn_mask=band, enable_gqa=True)",
+        "library_max_abs_err": library_err,
+        "dtype": "bfloat16", "tolerance": K2_BF16_TOL,
+        "mean_abs_out": mean_abs_out,
+        "fp32_max_abs_err": err32, "fp32_tolerance": K2_FP32_TOL,
+        "shape": {"q": list(q.shape), "k": list(k.shape), "causal": causal,
+                  "window": window},
+        "band_pairs": pairs, "bound_flops": flops, "bound_bytes": nbytes,
+        "achieved_tflops": flops / ms / 1e9,
+        "fp32_cuda_core_bound_ms": flops / FP32_FLOPS_PER_S * 1e3,
+        "cases": cases,
+    }
+
+
+def kernel_k3(rn, captured, launches: int) -> dict:
+    from repro_torch.kernels import ops
+    x, final_norm = captured["final_norm_input"], captured["final_norm"]
+    x2 = x.reshape(-1, x.shape[-1])
+
+    def kernel():
+        return rn.rmsnorm_cuda(x2, final_norm)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    ms = timed_ms(kernel, reps=20)
+    plain = rn.rmsnorm_plain(x2, final_norm)
+    plain_ms = timed_ms(lambda: rn.rmsnorm_plain(x2, final_norm), reps=5)
+    err = max_abs_diff(out.float(), plain.float())
+    check(torch.allclose(out.float(), plain.float(), atol=2e-2, rtol=2e-2),
+          f"K3 != plain version on the final norm's input (max abs err "
+          f"{err})")
+    d = x2.shape[-1]
+
+    def library():
+        return torch.nn.functional.rms_norm(x2, (d,), final_norm, eps=1e-6)
+
+    library()
+    library_ms = timed_ms(library, reps=20)
+
+    cases = []
+    for i, shape in enumerate(((8, 128), (3, 100, 96), (2, 5, 7, 256),
+                               (1, 512))):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            g = torch.Generator("cuda").manual_seed(i)
+            xs = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            sc = torch.randn(shape[-1:], generator=g, device="cuda")
+            got = ops.rmsnorm(xs, sc)
+            torch.cuda.synchronize()
+            want = rn.rmsnorm_plain(xs, sc)
+            e = max_abs_diff(got.float(), want.float())
+            check(torch.allclose(got.float(), want.float(), atol=tol,
+                                 rtol=tol),
+                  f"K3 != plain version on {shape} {dtype} (max abs err {e})")
+            cases.append({"shape": list(shape),
+                          "dtype": str(dtype).split(".")[-1],
+                          "max_abs_err": e, "tolerance": tol})
+
+    nbytes = 2 * x2.numel() * x2.element_size() \
+        + final_norm.numel() * final_norm.element_size()
+    flops = 4 * x2.numel()                  # square-add, two scalings
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:24",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "library": "torch.nn.functional.rms_norm",
+        "dtype": "bfloat16", "tolerance": "atol = rtol = 2e-2",
+        "shape": {"x": list(x2.shape), "scale_dtype":
+                  str(final_norm.dtype).split(".")[-1]},
+        "bound_bytes": nbytes,
+        "achieved_tb_per_s": nbytes / ms / 1e9,
+        "cases": cases,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -409,27 +933,39 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch.core as port
     import repro_torch.store as store_mod
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import megabatch_scan as scan
+    from repro_torch.kernels import rmsnorm as rn
 
+    # fp32 products in IEEE fp32 everywhere (these are the defaults)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     device = torch.device("cuda")
     env = phase_env()
     emit(env)
-    log("build: compiling the kernel")
-    emit(phase_build(scan))
-    log("kernels: random programs")
+    log("build: compiling the kernels")
+    emit(phase_build((scan, fa, rn)))
+    log("kernels: K1 on random programs")
     random_rows = check_random_programs(scan, device)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store:
         serve_line, mb, launches = phase_serve(port, store_mod, scan, store)
-    kernels_line = phase_kernels(scan, mb, launches, random_rows)
+    k1 = kernel_k1(scan, mb, launches, random_rows)
     del mb
     torch.cuda.empty_cache()
     log("profile: measured provider on the card")
     profile_line = phase_profile(port)
 
-    emit(kernels_line)
+    model_line, captured, model_launches = phase_model(fa, rn)
+    k2 = kernel_k2(fa, captured, model_launches["flash_attention"])
+    k3 = kernel_k3(rn, captured, model_launches["rmsnorm"])
+    del captured
+    torch.cuda.empty_cache()
+
+    emit({"kernels": [k1, k2, k3]})
     emit(profile_line)
+    emit(model_line)
     serve_line["total_seconds"] = time.perf_counter() - t_start
     emit(serve_line)
     print(env["nvidia_smi"], flush=True)

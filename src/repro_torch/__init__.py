@@ -10,5 +10,7 @@ passes ``device="cpu"``; hand-written CUDA kernels live under
 
 Ported so far: the strategy-serving path — configs, events, providers,
 the event-flow engine, the mega-batch program with its Hopper scan
-kernel, the profile store and ``DistSim.serve()``.
+kernel, the profile store and ``DistSim.serve()`` — and the model's
+serving path — the dense/VLM LM with its prefill and decode steps, the
+Hopper flash-attention and RMSNorm kernels and their ``ops`` wrappers.
 """

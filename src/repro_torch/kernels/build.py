@@ -18,8 +18,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -55,32 +56,46 @@ def find_nvcc() -> str:
         "at first use and cannot be built on this host")
 
 
-def load_kernel(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is not built yet, load
-    it and return the handle. Raises on any build or load failure."""
-    lib = _LOADED.get(name)
-    if lib is not None:
-        return lib
+def _compile(name: str) -> Tuple[Path, float]:
+    """Build ``csrc/<name>.cu`` unless its library exists; returns the
+    library's path and the seconds ``nvcc`` took (0.0 when reused)."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"lib{name}_{digest}.so"
-    seconds = 0.0
-    if not so.exists():
-        tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)           # atomic: no reader sees a partial
-    lib = ctypes.CDLL(str(so))
-    _LOADED[name] = lib
-    BUILD_LOG[name] = (str(so), seconds)
-    return lib
+    if so.exists():
+        return so, 0.0
+    tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)               # atomic: no reader sees a partial
+    return so, seconds
+
+
+def load_kernels(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Load the libraries of ``csrc/<name>.cu`` for every name, first
+    compiling those not built yet — one ``nvcc`` per source, all started
+    together. Raises on any build or load failure."""
+    todo = [n for n in dict.fromkeys(names) if n not in _LOADED]
+    if todo:
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            built = list(pool.map(_compile, todo))
+        for name, (so, seconds) in zip(todo, built):
+            _LOADED[name] = ctypes.CDLL(str(so))
+            BUILD_LOG[name] = (str(so), seconds)
+    return {n: _LOADED[n] for n in names}
+
+
+def load_kernel(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its library is not built yet, load
+    it and return the handle. Raises on any build or load failure."""
+    return load_kernels([name])[name]

@@ -1,0 +1,31 @@
+"""Plain full-softmax oracles for the port's kernels (the allclose
+targets of the tests), on tensors of any device."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, causal=True, window=None):
+    """q,k,v: (BH, S, hd), contiguous positions; full-softmax reference."""
+    sq, hd = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    scale = hd ** -0.5
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
+
+
+def rmsnorm_ref(x, scale, eps=1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

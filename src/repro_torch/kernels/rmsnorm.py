@@ -1,0 +1,110 @@
+"""Row RMSNorm on tensors: kernel and plain version.
+
+``x · rsqrt(mean(x²) + eps) · scale`` in fp32 over the last dimension,
+cast back to the input dtype — what the reference package's TPU kernel
+``kernels/rmsnorm.py::rmsnorm`` computes.
+
+* :func:`rmsnorm_cuda` — the hand-written Hopper kernel
+  (``csrc/rmsnorm.cu``): one block per row, 16-byte vector loads, an
+  fp32 block reduction, one HBM read and one write per element.
+  Compiled with ``nvcc`` for ``sm_90a`` at first use. A build or launch
+  failure raises.
+* :func:`rmsnorm_plain` — the plain PyTorch version, on any device: what
+  the CPU tests run and what the kernel is held against on the card.
+* :func:`rmsnorm` — the kernel for CUDA tensors, the plain version for
+  CPU tensors (and only because they lie on the CPU).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.ref import rmsnorm_ref
+
+#: times the CUDA kernel was launched by :func:`rmsnorm_cuda` (and
+#: nothing else adds to it): lets a run show that it went through it
+LAUNCHES = 0
+
+# dtype codes of csrc/rmsnorm.cu
+_X_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SCALE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+#: the kernel's arithmetic in PyTorch, on any device
+rmsnorm_plain = rmsnorm_ref
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+            block_rows: int = 128) -> torch.Tensor:
+    """x: (..., d); scale: (d,). ``block_rows`` is the reference's row
+    tile; rows are independent, so it changes no value here."""
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be >= 1; got {block_rows}")
+    if x.is_cuda:
+        return rmsnorm_cuda(x, scale, eps)
+    return rmsnorm_plain(x, scale, eps)
+
+
+_lib = None
+
+
+def _library():
+    """The compiled kernel, built at first use."""
+    global _lib
+    if _lib is None:
+        from repro_torch.kernels.build import load_kernel
+        lib = load_kernel("rmsnorm")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rmsnorm_launch.argtypes = [p, p, p, i, i, ctypes.c_float, i, i,
+                                       p]
+        lib.rmsnorm_launch.restype = i
+        lib.rmsnorm_error_string.argtypes = [i]
+        lib.rmsnorm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Wrapper of the CUDA kernel: checks its inputs, allocates the
+    output, launches on the current stream and checks the launch. It
+    does not synchronise."""
+    global LAUNCHES
+    if not x.is_cuda:
+        raise ValueError(f"rmsnorm_cuda needs a CUDA tensor; x lies on "
+                         f"{x.device}")
+    if scale.device != x.device:
+        raise ValueError(f"scale lies on {scale.device}, x on {x.device}")
+    if x.dtype not in _X_CODES:
+        raise TypeError(f"the kernel takes x in {sorted(map(str, _X_CODES))}"
+                        f"; got {x.dtype}")
+    if scale.dtype not in _SCALE_CODES:
+        raise TypeError(f"the kernel takes scale in "
+                        f"{sorted(map(str, _SCALE_CODES))}; got {scale.dtype}")
+    d = x.shape[-1] if x.dim() else 0
+    if x.dim() == 0 or tuple(scale.shape) != (d,):
+        raise ValueError(f"x must be (..., d) and scale (d,); got "
+                         f"{tuple(x.shape)} and {tuple(scale.shape)}")
+    if not x.is_contiguous() or not scale.is_contiguous():
+        raise ValueError("the kernel takes contiguous x and scale")
+    n = x.numel() // d if d else 0
+    if n >= 2 ** 31 or d >= 2 ** 31:
+        raise ValueError(f"{n} rows of width {d} exceed the kernel's int32 "
+                         f"grid")
+    out = torch.empty_like(x)
+    if n == 0 or d == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rmsnorm_launch(x.data_ptr(), scale.data_ptr(),
+                                 out.data_ptr(), n, d, float(eps),
+                                 _X_CODES[x.dtype], _SCALE_CODES[scale.dtype],
+                                 stream)
+    if err != 0:
+        msg = lib.rmsnorm_error_string(err).decode()
+        raise RuntimeError(
+            f"rmsnorm kernel launch failed: {msg} (cudaError {err})")
+    LAUNCHES += 1
+    return out

@@ -39,7 +39,8 @@ def forbidden_imports(path: pathlib.Path):
 def test_there_is_something_to_check():
     names = {f.name for f in port_sources()}
     assert {"megabatch.py", "megabatch_scan.py", "serve.py",
-            "chip_smoke.py"} <= names
+            "flash_attention.py", "rmsnorm.py", "ops.py", "lm.py",
+            "convert.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -57,10 +58,10 @@ def test_the_walk_sees_a_forbidden_import(tmp_path):
 
 
 def test_kernel_source_is_shipped_and_plain_c():
-    cu = PORT / "kernels" / "csrc" / "megabatch_scan.cu"
-    text = cu.read_text()
-    assert "__global__" in text and 'extern "C"' in text
-    assert "torch/extension.h" not in text and "ATen" not in text
+    for name in ("megabatch_scan", "flash_attention", "rmsnorm"):
+        text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+        assert "__global__" in text and 'extern "C"' in text, name
+        assert "torch/extension.h" not in text and "ATen" not in text, name
 
 
 _IMPORT_ALL = """
