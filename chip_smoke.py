@@ -15,19 +15,25 @@ kernels' launch counts set to 0 just before it and read just after:
   over 8 KV heads, head_dim 80, window 4096; random bf16 weights from a
   seeded generator on the card): a B=2 x S=8192 prefill through
   ``make_prefill_step`` with ``attn_impl="cuda"`` (the flash-attention
-  kernel K2, once a layer), decode through ``make_serve_step``, and the
+  kernel K2, once a layer, on its bf16 tensor-core variant), decode
+  through ``make_serve_step``, and the
   final norm's input through ``ops.rmsnorm`` (kernel K3, whose only
   entry is that public op: the reference's model never calls it).
 
 Around that it
 
-* builds the three kernels from the sources in the checkout (``nvcc``,
-  sm_90a, one process per source, all started together);
+* builds the kernels from the sources in the checkout (``nvcc``,
+  sm_90a, one process per source, all started together: K1, K2's
+  tensor-core and scalar variants, K3), with ptxas's registers and
+  spills per kernel;
 * holds every kernel against its plain PyTorch version on the inputs the
-  paths gave it (K1 bit-identical; K2 within two bf16 ulps, and on the
-  same q, k, v upcast to fp32 at 2e-5; K3 at 2e-2 in bf16) and on
-  seeded cases (K2 and K3 also in fp32 at 2e-5 / 1e-5, TF32 off), and
-  times kernel, plain version and a PyTorch library call there;
+  paths gave it (K1 bit-identical; K2 within two bf16 ulps through its
+  tensor-core variant, and on the same q, k, v upcast to fp32 at 2e-5
+  through its scalar variant; K3 at 2e-2 in bf16) and on seeded cases
+  (K2 and K3 also in fp32 at 2e-5 / 1e-5, TF32 off; K2's bf16 cases
+  asserted to take the tensor cores, a bf16 head_dim 40 case the scalar
+  kernel), and times kernel, plain version and a PyTorch library call
+  there;
 * checks the model's outputs by the repo's own means: prefill logits
   against the plain ``flash_torch`` attention path (in fp32 at 1e-4 x
   max |logit|; in bf16 the kernel path no further from the fp32 logits
@@ -48,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -64,7 +71,8 @@ FP64_FLOPS_PER_S = 33.5e12          # vector fp64 (no tensor cores used)
 BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor cores
 FP32_FLOPS_PER_S = 67e12            # fp32 outside the tensor cores
 
-KERNELS = ("megabatch_scan", "flash_attention", "rmsnorm")
+KERNELS = ("megabatch_scan", "flash_attention", "flash_attention_tc",
+           "rmsnorm")
 
 # K2 against its plain version. Both compute in fp32 and differ only in
 # summation order, so a bf16 output may differ by a rounding step: two
@@ -73,6 +81,9 @@ KERNELS = ("megabatch_scan", "flash_attention", "rmsnorm")
 # moves an output by ~0.003. In fp32 the reference's 2e-5.
 K2_BF16_TOL = {"atol": 1e-5, "rtol": 2.0 ** -6}
 K2_FP32_TOL = {"atol": 2e-5, "rtol": 2e-5}
+# query rows and keys of one tile of K2's tensor-core variant (BM = BN in
+# csrc/flash_attention_tc.cu), for the flops it issues
+K2_TC_TILE = 128
 # profiler activity types that are work on the device
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -209,10 +220,32 @@ def phase_build(wrappers) -> dict:
         rows.append({"name": name,
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                      "nvcc_seconds": nvcc_seconds,
-                     "library": os.path.basename(path)})
+                     "library": os.path.basename(path),
+                     "ptxas": ptxas_report(build.NVCC_OUTPUT.get(name, ""))})
     return {"phase": "build", "kernels": rows,
             "flags": list(build.NVCC_FLAGS), "seconds": seconds,
             "directory": sorted(dirs)}
+
+
+def ptxas_report(text: str) -> list:
+    """Registers and spill bytes per kernel from ``-Xptxas=-v``."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def check_random_programs(scan, device) -> list:
@@ -519,12 +552,16 @@ def phase_model(fa, rn):
 
     prefill = make_prefill_step(cfg, opts)
     with capture_inputs(ops, L, params["final_norm"]) as captured:
-        fa.LAUNCHES = 0                     # just before the prefill
+        fa.LAUNCHES = fa.TC_LAUNCHES = 0    # just before the prefill
         logits = prefill(params, batch)
         torch.cuda.synchronize()
         k2_launches = fa.LAUNCHES           # just after
+        k2_tc_launches = fa.TC_LAUNCHES
     check(k2_launches == cfg.n_layers,
           f"prefill launched K2 {k2_launches}x, expected {cfg.n_layers}")
+    check(k2_tc_launches == cfg.n_layers,
+          f"prefill launched K2's tensor-core variant {k2_tc_launches}x, "
+          f"expected {cfg.n_layers}")
     check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab),
           f"prefill logits of shape {tuple(logits.shape)}")
     last = logits[:, -128:].float()
@@ -592,7 +629,8 @@ def phase_model(fa, rn):
         "dtype": "bfloat16", "weights": "random, torch.Generator seed 0",
         "prefill": {
             "batch": PREFILL_BATCH, "seq": PREFILL_SEQ, "attn_impl": "cuda",
-            "k2_launches": k2_launches, "ms_median": median_ms,
+            "k2_launches": k2_launches, "k2_tc_launches": k2_tc_launches,
+            "ms_median": median_ms,
             "ms": prefill_ms,
             "tokens_per_s": PREFILL_BATCH * PREFILL_SEQ / median_ms * 1e3,
             "flash_torch_ms": plain_ms},
@@ -610,7 +648,8 @@ def phase_model(fa, rn):
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }
     captured["final_norm"] = params["final_norm"]
-    launches = {"flash_attention": k2_launches, "rmsnorm": k3_launches}
+    launches = {"flash_attention": k2_launches,
+                "flash_attention_tc": k2_tc_launches, "rmsnorm": k3_launches}
     return line, captured, launches
 
 
@@ -762,17 +801,56 @@ def seeded_qkv(shape, dtype, seed=0):
             for dims in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
 
 
-def kernel_k2(fa, captured, launches: int) -> dict:
+def k2_tc_flops(b: int, h: int, s: int, hd: int, causal: bool,
+                window) -> int:
+    """Flops K2's tensor-core variant issues: every (128-row q tile, 128-key
+    kv tile) it visits costs Q K^T plus P_hi V and P_lo V, 6 x 128 x 128 x
+    hd, masked parts included."""
+    t, tiles = K2_TC_TILE, 0
+    for q0 in range(0, s, t):
+        q_last = min(q0 + t, s) - 1
+        kv_lo = max(0, q0 - window + 1) if window else 0
+        kv_hi = q_last + 1 if causal else s
+        tiles += -(-kv_hi // t) - kv_lo // t
+    return b * h * tiles * 6 * t * t * hd
+
+
+def check_k2_case(fa, q, k, v, causal, window, tc: bool) -> float:
+    """One K2 call against its plain version at the bar of its dtype,
+    asserting which variant ran; returns the max abs error."""
+    check(fa.uses_tensor_cores(q, k, v) is tc,
+          f"dispatch rule: tensor cores {not tc} for {tuple(q.shape)} "
+          f"{q.dtype} strides {q.stride()}")
+    tc_before = fa.TC_LAUNCHES
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(fa.TC_LAUNCHES == tc_before + int(tc),
+          f"{'no' if tc else 'a'} tensor-core launch for {tuple(q.shape)} "
+          f"{q.dtype}")
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    tol = K2_BF16_TOL if q.dtype == torch.bfloat16 else K2_FP32_TOL
+    e = max_abs_diff(got.float(), want.float())
+    check(torch.allclose(got.float(), want.float(), **tol),
+          f"K2 != plain version on {tuple(q.shape)} {tuple(k.shape)} "
+          f"causal={causal} window={window} {q.dtype} (max abs err {e})")
+    return e
+
+
+def kernel_k2(fa, captured, launches: int, tc_launches: int) -> dict:
     q, k, v, kw = captured["attention"]
     causal, window = kw["causal"], kw["window"]
+    check(fa.uses_tensor_cores(q, k, v),
+          "the model's bf16 layer does not take the tensor cores")
 
     def kernel():
         return fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
 
+    tc_before = fa.TC_LAUNCHES
     out = kernel()
     torch.cuda.synchronize()
-    ms = timed_ms(kernel, reps=5)
-    log(f"kernels: K2 {ms:.2f} ms on layer 0's q, k, v; plain version")
+    check(fa.TC_LAUNCHES == tc_before + 1, "K2 bf16 missed the tensor cores")
+    ms = timed_ms(kernel, reps=10)
+    log(f"kernels: K2 {ms:.3f} ms on layer 0's q, k, v; plain version")
     plain, plain_ms = event_ms(lambda: fa.flash_attention_plain(
         q, k, v, causal=causal, window=window))
     err = max_abs_diff(out.float(), plain.float())
@@ -780,12 +858,19 @@ def kernel_k2(fa, captured, launches: int) -> dict:
           f"K2 != plain version on the model's layer (max abs err {err})")
     mean_abs_out = float(plain.float().abs().mean())
     del plain
-    # the same q, k, v in fp32: the kernel is IEEE fp32 inside, so here
-    # only summation order separates it from the plain version
+    # the same q, k, v in fp32 go to the scalar kernel, IEEE fp32 inside,
+    # so here only summation order separates it from the plain version
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    got32 = fa.flash_attention_cuda(q32, k32, v32, causal=causal,
-                                    window=window)
+    check(not fa.uses_tensor_cores(q32, k32, v32), "fp32 took the tensor "
+                                                   "cores")
+
+    def kernel32():
+        return fa.flash_attention_cuda(q32, k32, v32, causal=causal,
+                                       window=window)
+
+    got32 = kernel32()
     torch.cuda.synchronize()
+    fp32_ms = timed_ms(kernel32, reps=2)
     want32 = fa.flash_attention_plain(q32, k32, v32, causal=causal,
                                       window=window)
     err32 = max_abs_diff(got32, want32)
@@ -808,6 +893,8 @@ def kernel_k2(fa, captured, launches: int) -> dict:
     library_ms = timed_ms(library, reps=3)
     library_err = max_abs_diff(lib_out.transpose(1, 2).float(), out.float())
     del lib_out, band
+    check(ms <= library_ms, f"K2 took {ms} ms, the library call "
+                            f"{library_ms} ms")
 
     cases = []
     shapes = [((1, 128, 4, 4, 64), c, None) for c in (True, False)] \
@@ -817,28 +904,46 @@ def kernel_k2(fa, captured, launches: int) -> dict:
         + [((1, 160, 4, 2, 32), True, w) for w in (16, 64, 1000)] \
         + [((1, 300, 8, 2, 80), True, 64), ((1, 150, 8, 2, 80), False, 40)]
     for shape, c, w in shapes:
-        for dtype, tol in ((torch.float32, K2_FP32_TOL),
-                           (torch.bfloat16, K2_BF16_TOL)):
+        for dtype in (torch.float32, torch.bfloat16):
             sq, sk, sv = seeded_qkv(shape, dtype)
-            got = fa.flash_attention_cuda(sq, sk, sv, causal=c, window=w)
-            torch.cuda.synchronize()
-            want = fa.flash_attention_plain(sq, sk, sv, causal=c, window=w)
-            e = max_abs_diff(got.float(), want.float())
-            check(torch.allclose(got.float(), want.float(), **tol),
-                  f"K2 != plain version on {shape} causal={c} window={w} "
-                  f"{dtype} (max abs err {e})")
+            tc = dtype == torch.bfloat16
+            e = check_k2_case(fa, sq, sk, sv, c, w, tc)
             cases.append({"shape": list(shape), "causal": c, "window": w,
                           "dtype": str(dtype).split(".")[-1],
-                          "max_abs_err": e, "tolerance": tol})
+                          "variant": "tensor_cores" if tc else "scalar",
+                          "max_abs_err": e,
+                          "tolerance": K2_BF16_TOL if tc else K2_FP32_TOL})
+    # q, k, v as aligned strided views of one fused (B, S, (H+2KH)·hd)
+    # projection: the tensor cores read them in place
+    fb, fs, fh, fkh, fhd = 2, 640, 8, 2, 80
+    fused = torch.randn((fb, fs, (fh + 2 * fkh) * fhd), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5)
+                        ).to(torch.bfloat16)
+    fq = fused[..., :fh * fhd].unflatten(-1, (fh, fhd))
+    fk = fused[..., fh * fhd:(fh + fkh) * fhd].unflatten(-1, (fkh, fhd))
+    fv = fused[..., (fh + fkh) * fhd:].unflatten(-1, (fkh, fhd))
+    e = check_k2_case(fa, fq, fk, fv, True, 200, True)
+    cases.append({"shape": [fb, fs, fh, fkh, fhd], "causal": True,
+                  "window": 200, "dtype": "bfloat16",
+                  "layout": "strided views of one fused qkv buffer",
+                  "variant": "tensor_cores", "max_abs_err": e,
+                  "tolerance": K2_BF16_TOL})
+    # a bf16 head_dim the tensor-core variant does not take
+    sq, sk, sv = seeded_qkv((1, 300, 8, 2, 40), torch.bfloat16)
+    e = check_k2_case(fa, sq, sk, sv, True, 64, False)
+    cases.append({"shape": [1, 300, 8, 2, 40], "causal": True, "window": 64,
+                  "dtype": "bfloat16", "variant": "scalar",
+                  "max_abs_err": e, "tolerance": K2_BF16_TOL})
 
     pairs = band_pairs(s, k.shape[1], causal, window) * b * h
     flops = 4 * hd * pairs
+    issued = k2_tc_flops(b, h, s, hd, causal, window)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:74",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
@@ -847,13 +952,21 @@ def kernel_k2(fa, captured, launches: int) -> dict:
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "attn_mask=band, enable_gqa=True)",
         "library_max_abs_err": library_err,
+        "variant": "tensor_cores: TMA + wgmma bf16, P·V as P_hi·V + P_lo·V",
+        "tc_launches": tc_launches,
+        "smem_bytes_per_block": fa._library()["tc"]
+        .flash_attention_tc_smem_bytes(hd),
         "dtype": "bfloat16", "tolerance": K2_BF16_TOL,
         "mean_abs_out": mean_abs_out,
+        "fp32_ms": fp32_ms,
+        "fp32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "fp32_max_abs_err": err32, "fp32_tolerance": K2_FP32_TOL,
         "shape": {"q": list(q.shape), "k": list(k.shape), "causal": causal,
                   "window": window},
         "band_pairs": pairs, "bound_flops": flops, "bound_bytes": nbytes,
+        "issued_flops": issued,
         "achieved_tflops": flops / ms / 1e9,
+        "kernel_tflops": issued / ms / 1e9,
         "fp32_cuda_core_bound_ms": flops / FP32_FLOPS_PER_S * 1e3,
         "cases": cases,
     }
@@ -958,7 +1071,8 @@ def main() -> int:
     profile_line = phase_profile(port)
 
     model_line, captured, model_launches = phase_model(fa, rn)
-    k2 = kernel_k2(fa, captured, model_launches["flash_attention"])
+    k2 = kernel_k2(fa, captured, model_launches["flash_attention"],
+                   model_launches["flash_attention_tc"])
     k3 = kernel_k3(rn, captured, model_launches["rmsnorm"])
     del captured
     torch.cuda.empty_cache()

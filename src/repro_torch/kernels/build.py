@@ -4,8 +4,9 @@ Each kernel source under ``csrc/`` has a plain C interface (no PyTorch
 headers), so ``nvcc`` compiles it in seconds into a shared library that
 is loaded with :mod:`ctypes`. The library lands in a build directory
 outside the package — ``build/repro_torch_kernels/`` at the root of the
-checkout, or ``$REPRO_TORCH_BUILD_DIR`` — named by a hash of the source
-and the flags, so an edited source never loads a stale binary.
+checkout, or ``$REPRO_TORCH_BUILD_DIR`` — named by a hash of the source,
+every header under ``csrc/`` and the flags, so an edited source or
+header never loads a stale binary.
 
 Nothing here runs when the package is imported: a machine without
 ``nvcc`` can import every module, and only asking for a kernel raises.
@@ -24,13 +25,17 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
-#: Hopper with the architecture-specific feature set (wgmma, setmaxnreg)
+#: Hopper with the architecture-specific feature set (wgmma, setmaxnreg);
+#: ``-Xptxas=-v`` reports each kernel's registers and spills
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: name -> (library path, seconds the compile took; 0.0 when reused)
 BUILD_LOG: Dict[str, Tuple[str, float]] = {}
+#: name -> what nvcc printed (ptxas's register and spill report), for
+#: the libraries compiled by this process
+NVCC_OUTPUT: Dict[str, str] = {}
 
 
 def build_dir() -> Path:
@@ -56,15 +61,24 @@ def find_nvcc() -> str:
         "at first use and cannot be built on this host")
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives: named by a hash of
+    that source, every ``csrc/*.cuh`` header (any of them may be
+    included) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
 def _compile(name: str) -> Tuple[Path, float]:
     """Build ``csrc/<name>.cu`` unless its library exists; returns the
     library's path and the seconds ``nvcc`` took (0.0 when reused)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
+    so = library_path(name)
+    out_dir = so.parent
     out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"lib{name}_{digest}.so"
     if so.exists():
         return so, 0.0
     tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
@@ -78,6 +92,7 @@ def _compile(name: str) -> Tuple[Path, float]:
             f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, so)               # atomic: no reader sees a partial
+    NVCC_OUTPUT[name] = proc.stdout + proc.stderr
     return so, seconds
 
 

@@ -14,8 +14,9 @@
 // q, k and v to fp32 before both products, so P.V is an fp32 product;
 // here too: tiles are staged in shared memory as fp32 and every product
 // is an IEEE fp32 FMA on the CUDA cores (no tensor cores, hence no TF32
-// and no bf16 rounding of P). That is the simple first version; the
-// tensor-core (wgmma) redesign is later work.
+// and no bf16 rounding of P). It serves fp32 inputs and the bf16 inputs
+// the tensor-core kernel (flash_attention_tc.cu) does not take; the
+// Python wrapper's `uses_tensor_cores` decides which, before the launch.
 //
 // The TPU grid (BH, q-blocks, kv-blocks) runs its kv dimension in order
 // and carries (m, l, acc) in VMEM scratch. Here one block owns one

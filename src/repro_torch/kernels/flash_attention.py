@@ -9,12 +9,23 @@ model's ``(B, S, H, hd)`` layout with grouped-query KV heads (query head
 window``), online softmax, output ``acc / max(l, 1e-30)`` in the input
 dtype.
 
-* :func:`flash_attention_cuda` — the hand-written Hopper kernel
-  (``csrc/flash_attention.cu``): one block per (batch·head, 64-row q
-  tile) with the kv loop inside, fp32 on the CUDA cores, band-outside
-  kv tiles skipped, KV heads and the layout read in place through
-  strides. Compiled with ``nvcc`` for ``sm_90a`` at first use. A build
-  or launch failure raises.
+* :func:`flash_attention_cuda` — the hand-written Hopper kernels, one
+  block per (batch·head, q tile) with the kv loop inside, band-outside kv
+  tiles skipped, KV heads and the layout read in place through strides.
+  Which of two kernels runs is a rule on dtype and shape, decided before
+  any launch (:func:`uses_tensor_cores`):
+
+  - bf16 q, k, v with head_dim 32, 64, 80, 96 or 128, 16-byte-aligned
+    bases and (batch, seq, head) strides in multiples of 16 bytes go to
+    the tensor-core kernel (``csrc/flash_attention_tc.cu``): TMA copies,
+    ``wgmma`` products in bf16 with fp32 accumulators, P·V kept at fp32
+    accuracy by splitting P into two bf16 terms;
+  - fp32, and any bf16 input outside that rule (head_dim 40, a
+    misaligned view), go to the scalar kernel (``csrc/flash_attention.cu``),
+    IEEE fp32 on the CUDA cores.
+
+  Both are compiled with ``nvcc`` for ``sm_90a`` at first use. A build or
+  launch failure of either raises; neither falls back to the other.
 * :func:`flash_attention_plain` — the plain PyTorch version, on any
   device: the reference's blockwise algorithm (kv heads repeated, kv
   padded to whole blocks, every block walked and masked with -1e30).
@@ -31,15 +42,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-#: times the CUDA kernel was launched by :func:`flash_attention_cuda`
-#: (and nothing else adds to it): lets a run show that it went through it
+#: times a CUDA kernel (either one) was launched by
+#: :func:`flash_attention_cuda` (and nothing else adds to it): lets a run
+#: show that it went through the kernels
 LAUNCHES = 0
+#: the tensor-core kernel's share of :data:`LAUNCHES`
+TC_LAUNCHES = 0
 
 NEG_INF = -1e30
 #: widest head the kernel takes (its hd is padded to 32/64/80/96/128)
 MAX_HEAD_DIM = 128
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the tensor-core kernel takes (multiples of its 16-column
+#: TMA box; :func:`uses_tensor_cores`)
+TC_HEAD_DIMS = (32, 64, 80, 96, 128)
 
 
 def _check_shapes(q, k, v, window) -> int:
@@ -145,32 +162,61 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                  block_q=block_q, block_kv=block_kv)
 
 
+def uses_tensor_cores(q, k, v) -> bool:
+    """The dispatch rule of :func:`flash_attention_cuda`: True where the
+    tensor-core kernel takes the inputs — q, k and v all bf16, a head_dim
+    in :data:`TC_HEAD_DIMS`, unit head_dim stride, base addresses on 16
+    bytes and positive (batch, seq, head) strides in multiples of 16
+    bytes (what a TMA tensor map can describe). False sends them to the
+    scalar kernel. Decided from dtype and shape alone, before any
+    launch."""
+    if q.shape[-1] not in TC_HEAD_DIMS:
+        return False
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16 or t.stride(3) != 1 \
+                or t.data_ptr() % 16:
+            return False
+        if any(st <= 0 or (st * t.element_size()) % 16
+               for st in t.stride()[:3]):
+            return False
+    return True
+
+
 _lib = None
 
 
 def _library():
-    """The compiled kernel, built at first use."""
+    """The compiled kernels ``{"scalar": ..., "tc": ...}``, built at
+    first use (one ``nvcc`` each, in parallel)."""
     global _lib
     if _lib is None:
-        from repro_torch.kernels.build import load_kernel
-        lib = load_kernel("flash_attention")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [
-            p, p, p, p, ctypes.POINTER(ctypes.c_longlong),
-            i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
-        lib.flash_attention_launch.restype = i
-        lib.flash_attention_error_string.argtypes = [i]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        from repro_torch.kernels.build import load_kernels
+        libs = load_kernels(["flash_attention", "flash_attention_tc"])
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        scalar, tc = libs["flash_attention"], libs["flash_attention_tc"]
+        scalar.flash_attention_launch.argtypes = [
+            p, p, p, p, strides, i, i, i, i, i, i, i, i, f, i, p]
+        scalar.flash_attention_launch.restype = i
+        scalar.flash_attention_error_string.argtypes = [i]
+        scalar.flash_attention_error_string.restype = ctypes.c_char_p
+        tc.flash_attention_tc_launch.argtypes = [
+            p, p, p, p, strides, i, i, i, i, i, i, i, f, p]
+        tc.flash_attention_tc_launch.restype = i
+        tc.flash_attention_tc_smem_bytes.argtypes = [i]
+        tc.flash_attention_tc_smem_bytes.restype = i
+        tc.flash_attention_tc_error_string.argtypes = [i]
+        tc.flash_attention_tc_error_string.restype = ctypes.c_char_p
+        _lib = {"scalar": scalar, "tc": tc}
     return _lib
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
-    """Wrapper of the CUDA kernel: checks its inputs, allocates the
-    output, launches on the current stream and checks the launch. It
-    does not synchronise."""
-    global LAUNCHES
+    """Wrapper of the CUDA kernels: checks the inputs, allocates the
+    output, launches the kernel :func:`uses_tensor_cores` picks on the
+    current stream and checks the launch. It does not synchronise."""
+    global LAUNCHES, TC_LAUNCHES
     n_rep = _check_shapes(q, k, v, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -197,17 +243,26 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3])
-    lib = _library()
+    tc = uses_tensor_cores(q, k, v)
+    lib = _library()["tc" if tc else "scalar"]
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            strides, b, h, n_rep, sq)
+    masks = (int(causal), window if window is not None else 0,
+             float(hd ** -0.5))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides, b, h, n_rep, sq, sk, hd, int(causal),
-            window if window is not None else 0, float(hd ** -0.5),
-            _CODES[q.dtype], stream)
+        if tc:
+            err = lib.flash_attention_tc_launch(*args, hd, *masks, stream)
+            error_string = lib.flash_attention_tc_error_string
+        else:
+            err = lib.flash_attention_launch(*args, sk, hd, *masks,
+                                             _CODES[q.dtype], stream)
+            error_string = lib.flash_attention_error_string
     if err != 0:
-        msg = lib.flash_attention_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(
-            f"flash_attention kernel launch failed: {msg} (cudaError {err})")
+            f"flash_attention {'tensor-core' if tc else 'scalar'} kernel "
+            f"launch failed: {msg} (cudaError {err})")
     LAUNCHES += 1
+    TC_LAUNCHES += int(tc)
     return out

@@ -58,10 +58,17 @@ def test_the_walk_sees_a_forbidden_import(tmp_path):
 
 
 def test_kernel_source_is_shipped_and_plain_c():
-    for name in ("megabatch_scan", "flash_attention", "rmsnorm"):
-        text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+    csrc = PORT / "kernels" / "csrc"
+    for name in ("megabatch_scan", "flash_attention", "flash_attention_tc",
+                 "rmsnorm"):
+        text = (csrc / f"{name}.cu").read_text()
         assert "__global__" in text and 'extern "C"' in text, name
         assert "torch/extension.h" not in text and "ATen" not in text, name
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["hopper_ptx.cuh"]
+    for header in headers:
+        text = header.read_text()
+        assert "torch/" not in text and "ATen" not in text, header.name
 
 
 _IMPORT_ALL = """
