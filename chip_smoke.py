@@ -9,8 +9,8 @@ kernels' launch counts set to 0 just before it and read just after:
 * the serve path (gpt_145b: 80 layers, d_model 12288, d_ff 49152):
   ``DistSim.serve()`` answers the whole 1f1b+gpipe power-of-two strategy
   grid for 1024 devices (global batch 2048, seq 2048) as ONE mega-batch
-  program scored by the hand-written Hopper scan kernel (K1), cold and
-  then warm;
+  program scored by the hand-written Hopper scan kernel (K1, a dataflow
+  scan over the program's walk layout), cold and then warm;
 * the model path (h2o_danube_1_8b: 24 layers, d_model 2560, 32 heads
   over 8 KV heads, head_dim 80, window 4096; random bf16 weights from a
   seeded generator on the card): a B=2 x S=8192 prefill through
@@ -27,10 +27,12 @@ Around that it
   tensor-core and scalar variants, K3), with ptxas's registers and
   spills per kernel;
 * holds every kernel against its plain PyTorch version on the inputs the
-  paths gave it (K1 bit-identical; K2 within two bf16 ulps through its
-  tensor-core variant, and on the same q, k, v upcast to fp32 at 2e-5
-  through its scalar variant; K3 at 2e-2 in bf16) and on seeded cases
-  (K2 and K3 also in fp32 at 2e-5 / 1e-5, TF32 off; K2's bf16 cases
+  paths gave it (K1 bit-identical to its plain walk version and to the
+  numpy reference; K2 within two bf16 ulps through its tensor-core
+  variant, and on the same q, k, v upcast to fp32 at 2e-5 through its
+  scalar variant; K3 at 2e-2 in bf16) and on seeded cases (K1 on random
+  programs and chained ones with more chains a lane than it has walks;
+  K2 and K3 also in fp32 at 2e-5 / 1e-5, TF32 off; K2's bf16 cases
   asserted to take the tensor cores, a bf16 head_dim 40 case the scalar
   kernel), and times kernel, plain version and a PyTorch library call
   there;
@@ -175,6 +177,68 @@ def random_program(seed: int, K: int, max_len: int, device):
     return planes, total + 2, lengths
 
 
+def chained_program(seed: int, K: int, chains, length, device):
+    """A random valid program shaped like a pipeline with more devices
+    than the kernel has walks a lane: lane k has P chains of L rows (P
+    drawn from ``chains``, past 64 so that chains fold onto walks), a
+    chain's slots contiguous with dep0 the previous slot, row i of chain
+    c at step i·P + c, dep1 a row of chain c-1 at or before row i and
+    dep2 a row of chain c+1 before row i — dependencies between walks in
+    both directions."""
+    rng = np.random.default_rng(seed)
+    P = rng.integers(chains[0], chains[1] + 1, size=K)
+    L = rng.integers(length[0], length[1] + 1, size=K)
+    lens = P * L
+    T, total = int(lens.max()), int(lens.sum())
+    out = np.full((T, K), total + 1, dtype=np.int32)
+    dep = np.zeros((T, K, 3), dtype=np.int32)
+    delay = np.zeros((T, K, 3))
+    dur = np.zeros((T, K))
+    base = 1
+    for k in range(K):
+        p, ln = int(P[k]), int(L[k])
+        c, i = np.divmod(np.arange(p * ln), ln)
+        slot = base + c * ln + i
+        step = i * p + c
+        out[step, k] = slot
+        dep[step, k, 0] = np.where(i > 0, slot - 1, 0)
+        fwd = np.maximum(i - rng.integers(0, 3, size=slot.size), 0)
+        use = (c > 0) & (rng.random(slot.size) < 0.8)
+        dep[step, k, 1] = np.where(use, base + (c - 1) * ln + fwd, 0)
+        bwd = i - 1 - rng.integers(0, 3, size=slot.size)
+        use = (c < p - 1) & (bwd >= 0) & (rng.random(slot.size) < 0.8)
+        dep[step, k, 2] = np.where(use, base + (c + 1) * ln + bwd, 0)
+        delay[step, k, 1:] = rng.random((slot.size, 2)) * 1e-3
+        dur[step, k] = rng.random(slot.size) * 1e-2
+        base += p * ln
+    planes = [torch.from_numpy(a).to(device) for a in (out, dep, delay, dur)]
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(device)
+    return planes, total + 2, lengths
+
+
+def host_walks(planes, n_slots, lengths):
+    """The walk layout of a program given as planes, built on the host."""
+    from repro_torch.kernels.megabatch_scan import build_walks
+    out, dep, delay, dur = (t.cpu().numpy() for t in planes)
+    return build_walks(out, [dep[..., d] for d in range(3)],
+                       [delay[..., d] for d in range(3)], dur,
+                       lengths.cpu().numpy(), n_slots)
+
+
+def dag_depth(mb) -> int:
+    """The longest dependency path of a compiled program, in rows:
+    level = 1 + max(level of its dependencies) along each lane's steps,
+    the dummy slot at level 0."""
+    level = np.zeros(mb.n_slots, dtype=np.int64)
+    d0, d1, d2, out = mb._dep0, mb._dep1, mb._dep2, mb._out
+    for j in range(mb.T):
+        # padding rows write the trash slot, which nothing reads
+        level[out[j]] = 1 + np.maximum(np.maximum(level[d0[j]],
+                                                  level[d1[j]]),
+                                       level[d2[j]])
+    return int(level[1: mb.total + 1].max())
+
+
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max().item()) if a.numel() else 0.0
 
@@ -249,26 +313,43 @@ def ptxas_report(text: str) -> list:
 
 
 def check_random_programs(scan, device) -> list:
-    """Kernel vs plain version on seeded random programs, ragged and
-    walking the padding."""
+    """Kernel vs plain versions on seeded random programs: the walk
+    kernel against the plain walk version on the same layout and
+    against the plain step loop on the planes (ragged, and walking the
+    padding); random programs fold most rows' chains onto shared walks,
+    chained ones have more chains a lane than walks."""
     rows = []
-    for seed, K, max_len in ((1, 1, 1), (2, 33, 257), (3, 444, 700),
-                             (4, 1000, 64)):
-        planes, n_slots, lengths = random_program(seed, K, max_len, device)
+    cases = [("random", (1, 1, 1)), ("random", (2, 33, 257)),
+             ("random", (3, 444, 700)), ("random", (4, 1000, 64)),
+             ("chained", (5, 7, (65, 200), (2, 40))),
+             ("chained", (6, 132, (64, 130), (8, 64)))]
+    for kind, args in cases:
+        make = random_program if kind == "random" else chained_program
+        planes, n_slots, lengths = make(*args, device)
+        layout = host_walks(planes, n_slots, lengths)
+        w = layout.to(device)
+        ek, sk = scan.scan_walks(w, backend="cuda")
+        torch.cuda.synchronize()
+        ew, sw = scan.scan_walks(w, backend="torch")
+        same = bool(torch.equal(ek, ew) and torch.equal(sk, sw))
         for ragged in (True, False):
-            ln = lengths if ragged else None
-            ek, sk = scan.scan_steps(*planes, n_slots, backend="cuda",
-                                     lengths=ln)
+            ep, sp = scan.scan_steps(*planes, n_slots,
+                                     lengths=lengths if ragged else None)
             torch.cuda.synchronize()
-            ep, sp = scan.scan_steps(*planes, n_slots, backend="torch",
-                                     lengths=ln)
-            torch.cuda.synchronize()
-            same = bool(torch.equal(ek, ep) and torch.equal(sk, sp))
-            rows.append({"seed": seed, "K": K, "T": int(planes[0].shape[0]),
-                         "ragged": ragged, "bit_identical": same})
-            check(same, f"kernel != plain version on random program "
-                        f"seed={seed} K={K} ragged={ragged}")
-            check(float(ek.max()) > 0.0, "random program evaluated to zeros")
+            same = same and bool(torch.equal(ek, ep) and torch.equal(sk, sp))
+        rows.append({"kind": kind, "seed": args[0], "K": args[1],
+                     "T": int(planes[0].shape[0]),
+                     "rows": int(layout.out.size),
+                     "chains": layout.n_chains,
+                     "walks": int(layout.walk_ptr.size - 1),
+                     "walks_max": layout.max_walks,
+                     "bit_identical": same})
+        check(same, f"kernel != plain versions on {kind} program "
+                    f"{args}")
+        check(float(ek.max()) > 0.0, f"{kind} program evaluated to zeros")
+    check(any(r["chains"] > r["walks"] and r["kind"] == "chained"
+              and r["walks_max"] == 64 for r in rows),
+          "no program had more chains a lane than the kernel has walks")
     return rows
 
 
@@ -379,30 +460,26 @@ def port_config(name: str):
 
 
 def kernel_k1(scan, mb, launches: int, random_rows: list) -> dict:
-    """K1 against its plain version on the full-width program, with
-    times and the bound computed from this run's inputs."""
-    p = mb.device_planes()
-    args = (p["out"], p["dep"], p["delay"], p["dur"], mb.n_slots)
+    """K1 against its plain walk version and the numpy reference on the
+    full-width program, with times and the bound computed from this
+    run's inputs."""
+    layout = mb.walk_layout()               # built on the serve path
+    w = mb.device_walks()
 
     def kernel():
-        return scan.scan_steps(*args, backend="cuda", lengths=p["lengths"])
+        return scan.scan_walks(w, backend="cuda")
 
     ek, sk = kernel()
     torch.cuda.synchronize()                # a fault would surface here
-    ms = timed_ms(kernel, reps=3)
-    log(f"kernels: kernel {ms:.2f} ms on the full-width program; "
-        f"running the plain version ({mb.T} steps)")
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    ep, sp = scan.scan_steps(*args, backend="torch", lengths=p["lengths"])
-    t1.record()
-    t1.synchronize()
-    plain_ms = t0.elapsed_time(t1)
+    ms = timed_ms(kernel, reps=5)
+    log(f"kernels: kernel {ms:.3f} ms on the full-width program; "
+        f"running the plain walk version ({mb.T} steps)")
+    (ep, sp), plain_ms = event_ms(
+        lambda: scan.scan_walks(w, backend="torch"))
     err = max(max_abs_diff(ek, ep), max_abs_diff(sk, sp))
     same = bool(torch.equal(ek, ep) and torch.equal(sk, sp))
     check(same and err == 0.0,
-          f"kernel != plain version on the full-width program "
+          f"kernel != plain walk version on the full-width program "
           f"(max abs err {err})")
     # against the host reference too, slot for slot
     ref_ends, ref_starts = mb._eval_numpy()
@@ -410,6 +487,7 @@ def kernel_k1(scan, mb, launches: int, random_rows: list) -> dict:
           and np.array_equal(sk.cpu().numpy()[1: mb.total + 1],
                              ref_starts[1: mb.total + 1]),
           "kernel != numpy reference on the full-width program")
+    depth = dag_depth(mb)
 
     # bound: every live step's row read once (out 4 + dep 12 + delay 24
     # + dur 8 bytes), lengths read once, ends and starts written once;
@@ -427,11 +505,21 @@ def kernel_k1(scan, mb, launches: int, random_rows: list) -> dict:
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "design": "dataflow scan over walks: one block a lane, one "
+                  "thread a walk, NaN sentinel in ends as ready flag",
+        "plain": "scan_walks(backend='torch'): the walk layout in step "
+                 "order",
         "dtype": "float64", "tolerance": "bit-identical (0.0)",
         "shape": {"T": mb.T, "K": mb.K, "n_slots": mb.n_slots,
                   "live_steps": live},
         "bound_bytes": nbytes, "chain_steps": mb.T,
         "ns_per_chain_step": ms * 1e6 / mb.T,
+        "walks": int(layout.walk_ptr.size - 1),
+        "walks_max": layout.max_walks, "chains": layout.n_chains,
+        "threads_per_block": scan.threads_per_block(layout.max_walks),
+        "dag_depth": depth, "ns_per_wave": ms * 1e6 / depth,
+        "layout_seconds": layout.seconds,
+        "layout_device_bytes": w.nbytes,
         "random_programs": random_rows,
     }
 

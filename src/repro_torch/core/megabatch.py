@@ -40,10 +40,17 @@ plain PyTorch loop over steps, on any device) and ``cuda`` (the
 hand-written Hopper kernel); see
 :mod:`repro_torch.kernels.megabatch_scan`. ``auto`` resolves to ``cuda``
 when the program's device is a CUDA device and to ``torch`` when the
-caller asked for the CPU. All three are float64 and bit-identical. The
-compiled planes are moved to the device ONCE per :class:`MegaBatch`
-(at the first accelerator evaluation) and stay there, so a repeat
-``predict()`` pays only the evaluation; the epilogue runs on the host.
+caller asked for the CPU. All three are float64 and bit-identical.
+
+The ``cuda`` backend does not read the padded ``(T, K)`` planes. It
+reads the program's *walk layout*
+(:func:`repro_torch.kernels.megabatch_scan.build_walks`): the live rows
+only, grouped per lane into walks — a pipeline device's chain of tasks
+each, folded modulo ``MAX_WALKS`` — that the kernel advances in
+parallel. The layout is built on the host once per :class:`MegaBatch`
+and uploaded once; the ``torch`` backend uploads the planes instead.
+Either stays on the device, so a repeat ``predict()`` pays only the
+evaluation; the epilogue runs on the host.
 """
 from __future__ import annotations
 
@@ -55,9 +62,10 @@ import torch
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.engine import EventFlowEngine
-
-#: global slot 0 — constant end time 0.0, the identity dependency.
-DUMMY_SLOT = 0
+# DUMMY_SLOT: global slot 0 — constant end time 0.0, the identity dependency
+from repro_torch.kernels.megabatch_scan import (DUMMY_SLOT, Walks,
+                                                build_walks, scan_steps,
+                                                scan_walks)
 
 BACKENDS = ("auto", "numpy", "torch", "cuda")
 
@@ -100,7 +108,9 @@ class MegaBatch:
         engines = list(engines)
         self.engines = engines
         self.device = resolve_device(device)
-        self._planes = None            # device copy, made at first use
+        self._planes = None            # device copies, made at first use
+        self._walks = None             # host walk layout, built once
+        self._device_walks = None
         # the straggler plane of a Perturbation scales the profiled
         # means at compile time; that module is not part of the port
         # yet, so the argument keeps its place and refuses to be ignored
@@ -348,28 +358,50 @@ class MegaBatch:
             "lengths": up(self._len, torch.int32)}
         return self._planes
 
+    def walk_layout(self) -> Walks:
+        """The program's walk layout (:func:`build_walks`), built on the
+        host at the first call and kept; its ``seconds`` say what the
+        pass cost."""
+        if self._walks is None:
+            self._walks = build_walks(
+                self._out, (self._dep0, self._dep1, self._dep2),
+                (None, self._del1, self._del2), self._dur, self._len,
+                self.n_slots)
+        return self._walks
+
+    def device_walks(self) -> Walks:
+        """The walk layout on :attr:`device`, uploaded at the first call
+        and kept — what the ``cuda`` backend evaluates."""
+        if self._device_walks is None:
+            self._device_walks = self.walk_layout().to(self.device)
+        return self._device_walks
+
     def device_bytes(self) -> int:
-        """Bytes the uploaded program holds on the device (0 before the
-        first accelerator evaluation)."""
-        if self._planes is None:
-            return 0
-        return sum(t.numel() * t.element_size()
-                   for t in self._planes.values())
+        """Bytes the uploaded program holds on the device: the walk
+        layout for the ``cuda`` backend, the planes for ``torch`` (0
+        before the first accelerator evaluation)."""
+        planes = sum(t.nbytes for t in self._planes.values()) \
+            if self._planes else 0
+        walks = self._device_walks.nbytes \
+            if self._device_walks is not None else 0
+        return planes + walks
 
     def _eval(self, backend: str) -> Tuple[np.ndarray, np.ndarray, str]:
         backend = self.resolve_backend(backend)
         if backend == "numpy" or self.K == 0:
             ends, starts = self._eval_numpy()
             return ends, starts, "numpy"
-        from repro_torch.kernels import megabatch_scan
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(
                 f"backend='cuda' needs a program on a CUDA device; this "
                 f"one was built for {self.device}")
-        p = self.device_planes()
-        ends, starts = megabatch_scan.scan_steps(
-            p["out"], p["dep"], p["delay"], p["dur"], self.n_slots,
-            backend=backend, lengths=p["lengths"])
+        if backend == "cuda":
+            ends, starts = scan_walks(self.device_walks(), backend="cuda")
+        else:
+            p = self.device_planes()
+            ends, starts = scan_steps(
+                p["out"], p["dep"], p["delay"], p["dur"], self.n_slots,
+                lengths=p["lengths"])
         # the copy to the host waits for the kernel on the current stream
         return ends.cpu().numpy(), starts.cpu().numpy(), backend
 
@@ -444,6 +476,8 @@ def program_from_arrays(arrays: dict, device=DEFAULT_DEVICE) -> MegaBatch:
     mb.perturb = None
     mb.device = resolve_device(device)
     mb._planes = None
+    mb._walks = None
+    mb._device_walks = None
     dtypes = {"_del1": np.float64, "_del2": np.float64, "_dur": np.float64,
               "_ar": np.float64, "_opt": np.float64, "_send": np.float64}
     for name in PROGRAM_ARRAYS:

@@ -2,12 +2,16 @@
 kernel) against the reference: the same compiled programs, made from a
 seed with numpy, go through both packages.
 
-On the CPU the port runs the kernel's plain PyTorch version; the kernel
-itself is held against that version on the card by ``chip_smoke.py``.
+On the CPU the port runs the plain PyTorch versions: the step loop over
+the padded planes (``scan_steps``) and, for the kernel's entry
+``scan_walks``, the walk layout in step order; the kernel itself is held
+against them on the card by ``chip_smoke.py`` and the ``gpu`` test.
 Bars: bit-identity against the reference's float64 numpy path (the
 arithmetic is ``+`` and ``max`` only); ``rtol=1e-5`` against the
 reference's Pallas kernel, which runs in float32 in interpret mode.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -108,6 +112,13 @@ def lengths_of(prog):
     return torch.from_numpy(n.astype(np.int32))
 
 
+def walks_of(prog):
+    """A program's walk layout (what the kernel takes), on the host."""
+    return scan.build_walks(prog._out, (prog._dep0, prog._dep1, prog._dep2),
+                            (None, prog._del1, prog._del2), prog._dur,
+                            prog._len, prog.n_slots)
+
+
 def assert_bit_identical(prog, ends, starts):
     ref_ends, ref_starts = prog._eval_numpy()
     total = prog.total
@@ -126,7 +137,7 @@ def test_plain_scan_bit_identical_on_random_programs(seed, K, max_len,
     out, dep, delay, dur = tensors(prog, index_dtype)
     lengths = lengths_of(prog).to(index_dtype) if ragged else None
     ends, starts = scan.scan_steps(out, dep, delay, dur, prog.n_slots,
-                                   backend="torch", lengths=lengths)
+                                   lengths=lengths)
     assert ends.dtype == torch.float64 and ends.shape == (prog.n_slots,)
     assert_bit_identical(prog, ends, starts)
 
@@ -137,9 +148,8 @@ def test_plain_scan_bit_identical_on_compiled_programs(n, ragged):
     mb = reference_megabatch(STRATS[:n])
     out, dep, delay, dur = tensors(mb)
     lengths = lengths_of(mb) if ragged else None
-    # 'auto' on CPU tensors is the plain version
     ends, starts = scan.scan_steps(out, dep, delay, dur, mb.n_slots,
-                                   backend="auto", lengths=lengths)
+                                   lengths=lengths)
     assert_bit_identical(mb, ends, starts)
 
 
@@ -152,8 +162,7 @@ def test_plain_scan_matches_reference_pallas_interpret():
         mb._out, dep, delay, mb._dur, mb.n_slots, backend="pallas")
     out_t, dep_t, delay_t, dur_t = tensors(mb)
     ends, starts = scan.scan_steps(out_t, dep_t, delay_t, dur_t,
-                                   mb.n_slots, backend="torch",
-                                   lengths=lengths_of(mb))
+                                   mb.n_slots, lengths=lengths_of(mb))
     total = mb.total
     np.testing.assert_allclose(ends.numpy()[1: total + 1],
                                ref_ends[1: total + 1], rtol=1e-5)
@@ -167,8 +176,7 @@ def test_starts_are_per_slot_not_per_step():
     the start of the task whose END lives in slot s."""
     prog = RandomProgram(7, 4, 23)
     out, dep, delay, dur = tensors(prog)
-    ends, starts = scan.scan_steps(out, dep, delay, dur, prog.n_slots,
-                                   backend="torch")
+    ends, starts = scan.scan_steps(out, dep, delay, dur, prog.n_slots)
     live = prog._out != prog.total + 1
     o = prog._out[live]
     np.testing.assert_array_equal(
@@ -194,18 +202,18 @@ def _small():
 
 
 def test_cuda_backend_refuses_cpu_tensors():
-    prog, (out, dep, delay, dur) = _small()
+    prog, _ = _small()
+    w = walks_of(prog).to("cpu")
     before = scan.LAUNCHES
     with pytest.raises(ValueError, match="CUDA device"):
-        scan.scan_steps(out, dep, delay, dur, prog.n_slots, backend="cuda")
+        scan.scan_walks(w, backend="cuda")
     assert scan.LAUNCHES == before           # nothing was launched
 
 
 def test_unknown_backend_raises():
-    prog, (out, dep, delay, dur) = _small()
+    prog, _ = _small()
     with pytest.raises(ValueError, match="backend"):
-        scan.scan_steps(out, dep, delay, dur, prog.n_slots,
-                        backend="pallas")
+        scan.scan_walks(walks_of(prog).to("cpu"), backend="pallas")
 
 
 @pytest.mark.parametrize("which", ["delay", "dur"])
@@ -216,37 +224,34 @@ def test_wrong_float_dtype_raises(which):
     else:
         dur = dur.float()
     with pytest.raises(TypeError, match="float64"):
-        scan.scan_steps(out, dep, delay, dur, prog.n_slots,
-                        backend="torch")
+        scan.scan_steps(out, dep, delay, dur, prog.n_slots)
 
 
 def test_wrong_index_dtype_raises():
     prog, (out, dep, delay, dur) = _small()
     with pytest.raises(TypeError, match="out"):
         scan.scan_steps(out.to(torch.int16), dep, delay, dur,
-                        prog.n_slots, backend="torch")
-    # the kernel takes int32 only: its checker refuses int64 planes
+                        prog.n_slots)
+    # the kernel takes int32 only: its checker refuses an int64 layout
+    w = walks_of(prog).to("cpu")
     with pytest.raises(TypeError, match="int32"):
-        scan._check(out.long(), dep.long(), delay, dur, prog.n_slots,
-                    None, (torch.int32,))
+        scan.scan_walks(dataclasses.replace(w, dep=w.dep.long()))
 
 
 def test_non_contiguous_input_raises():
     prog, (out, dep, delay, dur) = _small()
     wide = torch.zeros((prog.T, 2 * prog.K), dtype=torch.float64)
     with pytest.raises(ValueError, match="contiguous"):
-        scan.scan_steps(out, dep, delay, wide[:, ::2], prog.n_slots,
-                        backend="torch")
+        scan.scan_steps(out, dep, delay, wide[:, ::2], prog.n_slots)
 
 
 def test_wrong_shape_raises():
     prog, (out, dep, delay, dur) = _small()
     with pytest.raises(ValueError, match="shape"):
         scan.scan_steps(out, dep[:, :, :2].contiguous(), delay, dur,
-                        prog.n_slots, backend="torch")
+                        prog.n_slots)
     with pytest.raises(ValueError, match="lengths"):
         scan.scan_steps(out, dep, delay, dur, prog.n_slots,
-                        backend="torch",
                         lengths=torch.zeros(prog.K + 1, dtype=torch.int32))
 
 
@@ -258,11 +263,13 @@ def test_kernel_bit_identical_to_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     prog = RandomProgram(5, 70, 400)
-    planes = [t.cuda() for t in tensors(prog)]
-    lengths = lengths_of(prog).cuda()
+    w = walks_of(prog).to("cuda")
     before = scan.LAUNCHES
-    ends, starts = scan.scan_steps(*planes, prog.n_slots, backend="cuda",
-                                   lengths=lengths)
+    ends, starts = scan.scan_walks(w, backend="cuda")
     torch.cuda.synchronize()
     assert scan.LAUNCHES == before + 1
     assert_bit_identical(prog, ends.cpu(), starts.cpu())
+    planes = [t.cuda() for t in tensors(prog)]
+    pe, ps = scan.scan_steps(*planes, prog.n_slots,
+                             lengths=lengths_of(prog).cuda())
+    assert torch.equal(ends, pe) and torch.equal(starts, ps)
