@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths once, each at full width, each with its
+Drives the port's three paths once, each at full width, each with its
 kernels' launch counts set to 0 just before it and read just after:
 
 * the serve path (gpt_145b: 80 layers, d_model 12288, d_ff 49152):
@@ -18,7 +18,10 @@ kernels' launch counts set to 0 just before it and read just after:
   kernel K2, once a layer, on its bf16 tensor-core variant), decode
   through ``make_serve_step``, and the
   final norm's input through ``ops.rmsnorm`` (kernel K3, whose only
-  entry is that public op: the reference's model never calls it).
+  entry is that public op: the reference's model never calls it);
+* the training path (the same model): ``fit`` (see below), which
+  launches none of the kernels, as the reference's training path calls
+  no Pallas kernel.
 
 Around that it
 
@@ -42,10 +45,23 @@ Around that it
   than 1.5 x the plain path), and fp32 decode against the fp32 forward
   at the reference's decode bar (2e-3);
 * profiles the unique events of one full-width pipeline stage with
-  ``TorchMeasuredProvider`` on the card.
+  ``TorchMeasuredProvider`` on the card;
+* trains: ``fit`` takes 6 AdamW steps of the same h2o_danube_1_8b at full
+  width (bf16, no remat, B=2 x S=4096, ``attn_impl="auto"``, i.e. the
+  plain ``flash_torch`` attention with its blockwise backward: the
+  reference's training path calls no kernel, and K1-K3 are counted to
+  stay at 0 there), gated on finite losses and gradient norms and a
+  first loss within 1 of ln 32000; one step is profiled;
+* closes the simulator's loop: the 1M1P1D prediction of that step by
+  ``TorchMeasuredProvider`` (and by ``HopperAnalyticalProvider``) against
+  the measured step, the measured provider's ratio gated to (1/3, 3);
+* holds the card to the CPU on one fp32 train step (TF32 off) of the
+  model cut to 2 layers: loss at rtol 1e-5, gradient norm at 1e-4, each
+  gradient leaf within 2e-5 x its max |g|.
 
 Every phase prints one JSON object on a line of its own (``env``,
-``build``, then ``kernels``, ``profile``, ``model``, ``serve``); then
+``build``, then ``kernels``, ``profile``, ``model``, ``serve``,
+``train``, ``loop_check``, ``train_check``); then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises: the run exits non-zero and
 prints no last line. There is no CPU mode — without a CUDA device the
@@ -98,6 +114,15 @@ MODEL_ARCH = "h2o_danube_1_8b"
 PREFILL_BATCH, PREFILL_SEQ = 2, 8192  # window 4096: active for half
 PROMPT = 64                           # fp32 decode == forward check
 DECODE_BATCH, DECODE_STEPS = 8, 256
+
+# the training path: fit() of the same model, and the simulator's 1M1P1D
+# prediction of that step held against it
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
+TIMED_STEPS = slice(2, 6)             # the median step: steps 2-5
+LOOP_BAR = (1 / 3, 3.0)               # the reference's own factor-3 bar
+# the card against the CPU on one fp32 step of the model cut to 2 layers
+CHECK_LAYERS, CHECK_BATCH, CHECK_SEQ = 2, 1, 2048
+CHECK_LOSS_RTOL, CHECK_GNORM_RTOL, CHECK_GRAD_REL = 1e-5, 1e-4, 2e-5
 
 
 def log(msg: str) -> None:
@@ -756,11 +781,15 @@ def is_device_work(e) -> bool:
             and e.name != "Command Buffer Full")
 
 
-def device_breakdown(fn, top: int = 8) -> dict:
+def device_breakdown(fn, top: int = 8, spans=()) -> dict:
     """``torch.profiler`` over one call of ``fn``: the device's busy time
     (the union of the intervals of its kernels, copies and memsets),
-    that time's share of the wall time, and the ``top`` kernels by
-    device time. Fails if the share exceeds 1."""
+    that time's share of the wall time, the ``top`` kernels by device
+    time, the ``top`` operators by the device time of the kernels they
+    launched themselves and, for each ``record_function`` range named in
+    ``spans``, the device time of the kernels launched inside it. Fails
+    if the share exceeds 1."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -784,7 +813,21 @@ def device_breakdown(fn, top: int = 8) -> dict:
     share = busy_us / wall_us
     check(share <= 1.0, f"device busy {busy_us} us of {wall_us} us wall")
     rows = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
+    span_us = {}
+    for e in prof.events():     # the CPU ranges; their GPU annotations
+        if e.name in spans and e.device_type == DeviceType.CPU:
+            n, us = span_us.get(e.name, (0, 0.0))
+            span_us[e.name] = (n + 1, us + e.device_time_total)
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU and e.key not in spans
+                  and e.self_device_time_total > 0),
+                 key=lambda e: e.self_device_time_total, reverse=True)
     return {"wall_us": wall_us, "device_busy_us": busy_us,
+            "spans": {k: {"count": n, "device_us": us}
+                      for k, (n, us) in sorted(span_us.items())},
+            "top_ops": [{"op": e.key[:80], "count": e.count,
+                         "device_us": e.self_device_time_total}
+                        for e in ops[:top]],
             "device_busy_share": share, "device_us": device_us,
             "kernel_launches": len(work),
             "counted": "activity_type" if getattr(
@@ -1126,6 +1169,228 @@ def kernel_k3(rn, captured, launches: int) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# the training path and the simulator's loop
+# --------------------------------------------------------------------------
+
+#: ``record_function`` ranges put around these functions while a train
+#: step is profiled: (module, function, range name)
+TRAIN_SPANS = (("repro_torch.models.lm", "loss_fn", "forward+loss"),
+               ("repro_torch.models.lm", "_chunked_ce", "cross_entropy"),
+               ("repro_torch.models.layers", "_flash_fwd_impl",
+                "flash_torch_fwd"),
+               ("repro_torch.models.layers", "_flash_bwd_impl",
+                "flash_torch_bwd"),
+               ("repro_torch.train.optimizer", "update", "adamw"))
+
+
+@contextlib.contextmanager
+def named_spans(targets):
+    """While the block runs, each (module, function) of ``targets`` runs
+    inside a ``torch.profiler.record_function`` range of its name; the
+    calls themselves go through."""
+    import importlib
+    saved = []
+    for module, attr, label in targets:
+        mod = importlib.import_module(module)
+        real = getattr(mod, attr)
+
+        def wrapped(*args, _real=real, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _real(*args, **kw)
+
+        setattr(mod, attr, wrapped)
+        saved.append((mod, attr, real))
+    try:
+        yield
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+
+
+def reset_launches(counters) -> None:
+    for mod in counters:
+        mod.LAUNCHES = 0
+        if hasattr(mod, "TC_LAUNCHES"):
+            mod.TC_LAUNCHES = 0
+
+
+def phase_train(counters) -> dict:
+    """``fit`` on full-width h2o_danube_1_8b: bf16, no remat, ``auto``
+    attention (``flash_torch`` at 4096 keys), B=2 x S=4096, 6 steps,
+    seed 0; then one more step of the same shapes under the profiler."""
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.train_loop import LoopConfig, fit
+
+    cfg = port_config(MODEL_ARCH)
+    opts = L.ModelOptions(dtype=torch.bfloat16, remat=False,
+                          attn_impl="auto")
+    loop = LoopConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    log(f"train: fit {MODEL_ARCH} full width, B={TRAIN_BATCH} "
+        f"S={TRAIN_SEQ}, {TRAIN_STEPS} steps")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(counters)                # just before the train path
+    r = fit(cfg, opts, loop=loop, verbose=False)
+    launches = {m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES for m in counters}
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(launches.values()),
+          f"the train path launched a kernel: {launches}")
+    check(len(r.losses) == TRAIN_STEPS, f"{len(r.losses)} steps done")
+    check(all(np.isfinite(r.losses)) and all(np.isfinite(r.grad_norms)),
+          f"losses {r.losses} or grad norms {r.grad_norms} not finite")
+    ln_v = float(np.log(cfg.vocab))
+    check(abs(r.losses[0] - ln_v) < 1.0,
+          f"first loss {r.losses[0]} is not within 1 of ln V = {ln_v}")
+    measured = float(np.median(r.step_times[TIMED_STEPS]))
+    log(f"train: median step {measured:.4f} s, losses {r.losses}")
+
+    log("train: one step under the profiler")
+    dev = torch.device("cuda")
+    params = build_model(cfg, opts).init(torch.Generator(dev).manual_seed(0),
+                                         dev)
+    state = opt.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        DataConfig(seed=0, vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH), 0).items()}
+    step = make_train_step(cfg, opts)
+    params, state, _ = step(params, state, batch)      # warm
+    with named_spans(TRAIN_SPANS):
+        profile = device_breakdown(
+            lambda: step(params, state, batch)[2]["loss"].item(), top=12,
+            spans=[label for _, _, label in TRAIN_SPANS])
+    del params, state, batch
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {"phase": "train", "arch": MODEL_ARCH, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "dtype": "bfloat16", "remat": False, "attn_impl": "auto",
+            "attn_impl_taken": "flash_torch"
+            if TRAIN_SEQ > opts.flash_threshold else "naive",
+            "steps": TRAIN_STEPS, "seed": 0,
+            "step_seconds": r.step_times, "measured_seconds": measured,
+            "measured_steps": "median of steps 2-5",
+            "tokens_per_s": tokens / measured, "losses": r.losses,
+            "grad_norm": r.grad_norms, "ln_vocab": ln_v,
+            "peak_memory_bytes": peak, "kernel_launches": launches,
+            "step_profile": profile}
+
+
+def phase_loop_check(port, measured: float) -> dict:
+    """The 1M1P1D prediction of the train phase's step (one device, one
+    microbatch of B=2 x S=4096) by the measured and the analytical
+    provider, against the measured step."""
+    from repro_torch.core.events import build_stage_events
+    cfg = port_config(MODEL_ARCH)
+    providers = {
+        "measured": port.TorchMeasuredProvider(
+            port.H100_CLUSTER, dtype=torch.bfloat16, tf32=False),
+        "analytical": port.HopperAnalyticalProvider(port.H100_CLUSTER)}
+    pred, seconds = {}, {}
+    for name, provider in providers.items():
+        t0 = time.perf_counter()
+        pred[name] = port.DistSim(
+            cfg, port.Strategy(), global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            provider=provider).simulate().batch_time
+        seconds[name] = time.perf_counter() - t0
+    ratio = {k: v / measured for k, v in pred.items()}
+    (stage,) = build_stage_events(cfg, port.Strategy(), TRAIN_BATCH,
+                                  TRAIN_SEQ,
+                                  providers["measured"].cluster
+                                  .devices_per_island)
+    events: dict = {}
+    for e in stage.fwd.events + stage.bwd.events:
+        row = events.setdefault(e.name, {"count": 0, "flops": e.flops})
+        row["count"] += 1
+        for name, provider in providers.items():
+            row[f"{name}_s"] = provider.time(e)
+    log(f"loop_check: predicted {pred} s, measured {measured} s")
+    check(all(np.isfinite(v) and v > 0 for v in pred.values()),
+          f"predictions {pred}")
+    lo, hi = LOOP_BAR
+    check(lo < ratio["measured"] < hi,
+          f"measured-provider prediction {pred['measured']} s is "
+          f"{ratio['measured']} x the measured step {measured} s")
+    return {"phase": "loop_check", "arch": MODEL_ARCH,
+            "strategy": port.Strategy().label(), "global_batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "cluster": port.H100_CLUSTER.name,
+            "measured_step_seconds": measured,
+            "predicted_measured_provider_seconds": pred["measured"],
+            "predicted_analytical_provider_seconds": pred["analytical"],
+            "ratio_measured_provider": ratio["measured"],
+            "ratio_analytical_provider": ratio["analytical"],
+            "bar": "1/3 < ratio_measured_provider < 3",
+            "provider": "TorchMeasuredProvider(dtype=bfloat16, tf32=False)",
+            "simulate_seconds": seconds, "events": events}
+
+
+def phase_train_check() -> dict:
+    """One fp32 train step (loss and gradients, then AdamW) of the model
+    cut to CHECK_LAYERS layers, from one CPU ``torch.Generator`` draw,
+    on the card and on the CPU."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.api import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import TrainConfig, value_and_grad
+    from repro_torch.train.tree import leaf_paths, map_leaves
+
+    cfg = dataclasses.replace(port_config(MODEL_ARCH), n_layers=CHECK_LAYERS)
+    opts = L.ModelOptions(dtype=torch.float32, remat=False,
+                          attn_impl="flash_torch")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                            opts)
+    batch = synth_batch(DataConfig(seed=0, vocab=cfg.vocab, seq_len=CHECK_SEQ,
+                                   global_batch=CHECK_BATCH), 0)
+    loss_fn = build_model(cfg, opts).loss
+    out = {}
+    for dev in ("cuda", "cpu"):
+        log(f"train_check: one fp32 step on {dev}")
+        p = map_leaves(lambda t, d=dev: t.to(d), params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(loss_fn, p, b)
+        _, _, metrics = opt.update(TrainConfig().adamw, p, grads,
+                                   opt.init(p))
+        out[dev] = {"loss": loss.item(),
+                    "grad_norm": metrics["grad_norm"].item(),
+                    "seconds": time.perf_counter() - t0,
+                    "grads": {k: g.cpu() for k, g in leaf_paths(grads)}}
+        del p, b, grads
+    gpu, cpu = out["cuda"], out["cpu"]
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    gnorm_rel = abs(gpu["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+    leaves = {}
+    for name, g in cpu["grads"].items():
+        scale = float(g.abs().max())
+        leaves[name] = max_abs_diff(gpu["grads"][name], g) / scale
+    check(loss_rel <= CHECK_LOSS_RTOL,
+          f"loss on the card {gpu['loss']}, on the CPU {cpu['loss']}")
+    check(gnorm_rel <= CHECK_GNORM_RTOL,
+          f"grad norm on the card {gpu['grad_norm']}, on the CPU "
+          f"{cpu['grad_norm']}")
+    worst = max(leaves, key=leaves.get)
+    check(leaves[worst] <= CHECK_GRAD_REL,
+          f"gradient {worst} differs by {leaves[worst]} x its max |g|")
+    return {"phase": "train_check", "arch": MODEL_ARCH,
+            "layers": CHECK_LAYERS, "batch": CHECK_BATCH, "seq": CHECK_SEQ,
+            "dtype": "float32", "tf32": False, "attn_impl": "flash_torch",
+            "loss": {"cuda": gpu["loss"], "cpu": cpu["loss"],
+                     "rel": loss_rel, "rtol": CHECK_LOSS_RTOL},
+            "grad_norm": {"cuda": gpu["grad_norm"], "cpu": cpu["grad_norm"],
+                          "rel": gnorm_rel, "rtol": CHECK_GNORM_RTOL},
+            "grad_leaf_rel_max": leaves, "grad_leaf_bar":
+            f"{CHECK_GRAD_REL} x max |g| of the leaf",
+            "seconds": {"cuda": gpu["seconds"], "cpu": cpu["seconds"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -1165,11 +1430,18 @@ def main() -> int:
     del captured
     torch.cuda.empty_cache()
 
+    train_line = phase_train((scan, fa, rn))
+    loop_line = phase_loop_check(port, train_line["measured_seconds"])
+    check_line = phase_train_check()
+
     emit({"kernels": [k1, k2, k3]})
     emit(profile_line)
     emit(model_line)
-    serve_line["total_seconds"] = time.perf_counter() - t_start
     emit(serve_line)
+    emit(train_line)
+    emit(loop_line)
+    check_line["total_seconds"] = time.perf_counter() - t_start
+    emit(check_line)
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

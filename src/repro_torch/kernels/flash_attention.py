@@ -42,6 +42,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_autograd
+
 #: times a CUDA kernel (either one) was launched by
 #: :func:`flash_attention_cuda` (and nothing else adds to it): lets a run
 #: show that it went through the kernels
@@ -155,7 +157,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, block_q: int = 128,
                     block_kv: int = 128) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version for CPU tensors.
-    The block sizes shape only the plain version's tiling."""
+    The block sizes shape only the plain version's tiling. Raises under
+    autograd (:func:`~repro_torch.kernels.refuse_autograd`)."""
+    refuse_autograd("flash_attention", q, k, v)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -217,6 +221,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     output, launches the kernel :func:`uses_tensor_cores` picks on the
     current stream and checks the launch. It does not synchronise."""
     global LAUNCHES, TC_LAUNCHES
+    refuse_autograd("flash_attention_cuda", q, k, v)
     n_rep = _check_shapes(q, k, v, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ref import rmsnorm_ref
 
 #: times the CUDA kernel was launched by :func:`rmsnorm_cuda` (and
@@ -38,7 +39,9 @@ rmsnorm_plain = rmsnorm_ref
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
             block_rows: int = 128) -> torch.Tensor:
     """x: (..., d); scale: (d,). ``block_rows`` is the reference's row
-    tile; rows are independent, so it changes no value here."""
+    tile; rows are independent, so it changes no value here. Raises
+    under autograd (:func:`~repro_torch.kernels.refuse_autograd`)."""
+    refuse_autograd("rmsnorm", x, scale)
     if block_rows < 1:
         raise ValueError(f"block_rows must be >= 1; got {block_rows}")
     if x.is_cuda:
@@ -71,6 +74,7 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     output, launches on the current stream and checks the launch. It
     does not synchronise."""
     global LAUNCHES
+    refuse_autograd("rmsnorm_cuda", x, scale)
     if not x.is_cuda:
         raise ValueError(f"rmsnorm_cuda needs a CUDA tensor; x lies on "
                          f"{x.device}")

@@ -1,8 +1,8 @@
 """Unified model API: one entry point per architecture family.
 
 ``build_model(cfg, opts)`` returns a ``ModelAPI`` with functional
-``init / forward / init_cache / decode_step`` members, used by the
-server steps and the smoke run alike.
+``init / forward / loss / init_cache / decode_step`` members, used by
+the train and serve steps and the smoke run alike.
 
 ``input_specs(cfg, shape)`` returns :class:`TensorSpec` stand-ins (shape
 and dtype) for every model input of that (arch x shape) cell, without
@@ -38,6 +38,7 @@ class ModelAPI:
     opts: ModelOptions
     init: Callable[..., Any]
     forward: Callable[..., torch.Tensor]
+    loss: Callable[..., torch.Tensor]
     init_cache: Callable[..., Any]
     decode_step: Callable[..., Any]
 
@@ -52,6 +53,7 @@ def build_model(cfg: ArchConfig,
         init=lambda generator, device=DEFAULT_DEVICE: lm.init_params(
             cfg, generator, device, opts),
         forward=lambda p, b: lm.forward(cfg, p, b, opts),
+        loss=lambda p, b: lm.loss_fn(cfg, p, b, opts),
         init_cache=lambda batch, max_seq, device=DEFAULT_DEVICE:
             lm.init_cache(cfg, batch, max_seq, opts, device),
         decode_step=lambda p, c, b: lm.decode_step(cfg, p, c, b, opts),

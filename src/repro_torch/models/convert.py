@@ -1,4 +1,5 @@
-"""Carry a parameter tree of the reference package over to the port.
+"""Carry a parameter tree (and an AdamW state) of the reference package
+over to the port.
 
 The reference keeps its parameters as a pytree of arrays — nested dicts,
 per-layer weights stacked over a leading layer axis, the FFN under
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.train.optimizer import AdamWState
 
 
 def _is_bfloat16(dtype: np.dtype) -> bool:
@@ -51,3 +53,16 @@ def params_from_reference(tree: Mapping[str, Any], device=DEFAULT_DEVICE,
         return t.to(device=dev, dtype=dtype, copy=True)
 
     return convert(tree)
+
+
+def optimizer_state_from_reference(state: Any, device=DEFAULT_DEVICE
+                                   ) -> AdamWState:
+    """The port's :class:`AdamWState` from the reference's (``step`` and
+    the ``mu``/``nu`` trees, leaves as numpy arrays), on ``device``: the
+    same step and bit-identical fp32 moments."""
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step=step,
+                      mu=params_from_reference(state.mu, device=dev),
+                      nu=params_from_reference(state.nu, device=dev))

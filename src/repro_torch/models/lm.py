@@ -1,28 +1,34 @@
 """Decoder-only LM assembly in PyTorch: the dense and VLM families of
-the reference package's ``repro.models.lm``, forward and decode.
+the reference package's ``repro.models.lm``: forward, loss and decode.
 
 Parameters are a nested dict of tensors with the reference's names and
 layout: ``embed``, ``final_norm``, optional ``head``, and
 ``attn_layers`` — every per-layer weight STACKED over a leading layer
 axis, the FFN nested under ``ffn``. A converted reference tree
 (:mod:`repro_torch.models.convert`) is therefore used as it is. Layers
-run in a Python loop over the stack.
+run in a Python loop over the stack, each stacked leaf unbound once per
+call (so under autograd the stack's gradient is one ``stack``, not a
+zero-filled stack per layer), and each layer is checkpointed under
+``opts.remat`` as the reference's ``jax.checkpoint`` does.
 
 Public entry points (used by api.py):
   init_params(cfg, generator, device, opts)      → parameter dict
   forward(cfg, params, batch, opts)              → logits (prefill)
+  loss_fn(cfg, params, batch, opts)              → scalar loss (chunked CE)
   init_cache(cfg, batch, max_seq, opts, device)  → decode cache dict
   decode_step(cfg, params, cache, batch, opts)   → (logits, cache)
 
 The families ``moe``, ``ssm``, hybrid and encoder-decoder raise
-``NotImplementedError`` until their modules are ported; ``loss_fn``
-comes with training (ROADMAP.md, Queue 1).
+``NotImplementedError`` until their modules are ported (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
@@ -131,10 +137,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return params
 
 
-def layer_params(stacked: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked parameter tree (views, no copy)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
+def unstack_layers(stacked: Params, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree (views, no copy),
+    each leaf unbound once."""
+    out = [{} for _ in range(n)]
+    for k, v in stacked.items():
+        parts = unstack_layers(v, n) if isinstance(v, dict) \
+            else torch.unbind(v)
+        for layer, part in zip(out, parts):
+            layer[k] = part
+    return out
 
 
 def _head(cfg: ArchConfig, params: Params) -> torch.Tensor:
@@ -193,12 +205,18 @@ def _attn_layer(cfg, p, x, positions, opts):
 
 def backbone(cfg: ArchConfig, params: Params, x: torch.Tensor,
              positions: torch.Tensor, opts: ModelOptions) -> torch.Tensor:
-    """The layer stack. x: (B,S,d) → (B,S,d)."""
+    """The layer stack. x: (B,S,d) → (B,S,d). Under ``opts.remat`` and
+    autograd each layer keeps only its input and recomputes the rest in
+    the backward."""
     check_family(cfg)
-    stacked = params["attn_layers"]
-    for i in range(cfg.n_layers):
-        x = L.constrain(_attn_layer(cfg, layer_params(stacked, i), x,
-                                    positions, opts), opts)
+    remat = opts.remat and torch.is_grad_enabled()
+    for lp in unstack_layers(params["attn_layers"], cfg.n_layers):
+        if remat:
+            x = checkpoint(_attn_layer, cfg, lp, x, positions, opts,
+                           use_reentrant=False)
+        else:
+            x = _attn_layer(cfg, lp, x, positions, opts)
+        x = L.constrain(x, opts)
     return x
 
 
@@ -224,6 +242,43 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     x = backbone(cfg, params, x, positions, opts)
     x = L.rmsnorm(x, params["final_norm"])
     return x @ _head(cfg, params)
+
+
+def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over labels >= 0 without materializing (B,S,V):
+    a loop over S chunks, labels padded with -1 to a whole chunk."""
+    b, s, d = x.shape
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, x.shape[1], chunk):
+        ll = labels[:, c0:c0 + chunk].long()
+        logits = (x[:, c0:c0 + chunk] @ head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ll.clamp(min=0)[..., None])[..., 0]
+        valid = ll >= 0
+        tot = tot + torch.where(valid, lse - gold, 0.0).sum()
+        cnt = cnt + valid.sum()
+    return tot / cnt.clamp(min=1)
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+            opts: ModelOptions = DEFAULT_OPTIONS) -> torch.Tensor:
+    """Scalar training loss: chunked cross-entropy of the next-token
+    labels (-1 = no target), the stub modality prefix carrying none."""
+    x, positions = embed_inputs(cfg, params, batch, opts)
+    x = backbone(cfg, params, x, positions, opts)
+    x = L.rmsnorm(x, params["final_norm"])
+    labels = batch["labels"]
+    if labels.shape[1] != x.shape[1]:       # stub modality prefix: no loss
+        labels = F.pad(labels, (x.shape[1] - labels.shape[1], 0), value=-1)
+    ce = _chunked_ce(x, _head(cfg, params), labels)
+    aux = 0.0       # the MoE load-balance loss: 0 for the ported families
+    return ce + 0.01 * aux
 
 
 # --------------------------------------------------------------------------
@@ -296,9 +351,9 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
     check_family(cfg)
     x = params["embed"][batch["tokens"].long()].to(opts.dtype)   # (B,1,d)
     pos = cache["pos"]
-    stacked, kv = params["attn_layers"], cache["attn"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(stacked, i)
+    kv = cache["attn"]
+    layers = unstack_layers(params["attn_layers"], cfg.n_layers)
+    for i, lp in enumerate(layers):
         pa = {k: v for k, v in lp.items() if k != "ffn"}
         x = _attn_decode_block(cfg, pa, x, pos,
                                {name: t[i] for name, t in kv.items()})

@@ -1,2 +1,2 @@
-"""Step factories of the port. So far the serving steps (prefill and
-one-token decode); the training step comes with the optimizer."""
+"""Training of the port: AdamW, the train and serve steps, the training
+loop, checkpoint/restore and the fault-tolerance substrate."""

@@ -40,7 +40,9 @@ def test_there_is_something_to_check():
     names = {f.name for f in port_sources()}
     assert {"megabatch.py", "megabatch_scan.py", "serve.py",
             "flash_attention.py", "rmsnorm.py", "ops.py", "lm.py",
-            "convert.py", "chip_smoke.py"} <= names
+            "convert.py", "chip_smoke.py", "pipeline.py", "optimizer.py",
+            "checkpoint.py", "fault_tolerance.py", "train_loop.py",
+            "tree.py", "step.py"} <= names
 
 
 @pytest.mark.parametrize(
