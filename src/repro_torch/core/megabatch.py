@@ -111,14 +111,19 @@ class MegaBatch:
         self._planes = None            # device copies, made at first use
         self._walks = None             # host walk layout, built once
         self._device_walks = None
-        # the straggler plane of a Perturbation scales the profiled
-        # means at compile time; that module is not part of the port
-        # yet, so the argument keeps its place and refuses to be ignored
-        if perturb is not None:
-            raise NotImplementedError(
-                "MegaBatch(perturb=...) needs repro_torch.core.perturb, "
-                "which is not ported yet; pass perturb=None")
-        self.perturb = None
+        # a Perturbation's straggler multipliers scale the profiled
+        # means at compile time (same operand pairings as the engine's
+        # speed plane, so candidate rows stay bit-identical to
+        # engine.run(perturb=...)); perturb=None compiles byte-identical
+        # arrays to the historical program. The single-replica program
+        # requires effects uniform across DP (pipe_scale raises
+        # otherwise); faults are run-level splices and rejected here.
+        if perturb is not None and getattr(perturb, "faults", ()):
+            raise ValueError(
+                "mega-batch predict evaluates one step; fault recovery "
+                "is spliced at the run level — use "
+                "DistSim.simulate(perturb=...)")
+        self.perturb = perturb
         K = len(engines)
         self.K = K
         sizes = [e.total_tasks for e in engines]
@@ -450,9 +455,10 @@ class MegaBatch:
 def megabatch_predict(engines: Sequence[EventFlowEngine],
                       backend: str = "auto", perturb=None,
                       device=DEFAULT_DEVICE) -> MegaPredict:
-    """One-shot convenience: compile + evaluate K engines on ``device``
-    (``perturb`` must be ``None`` until the perturbation module is
-    ported)."""
+    """One-shot convenience: compile + evaluate K engines on ``device``,
+    optionally under a :class:`repro_torch.core.perturb.Perturbation`
+    straggler plane (uniform across DP; each candidate row stays
+    bit-identical to ``engine.run(perturb=perturb)``)."""
     return MegaBatch(engines, perturb=perturb,
                      device=device).predict(backend)
 

@@ -188,14 +188,23 @@ class DistSim:
         call (e.g. ``sim.simulate(scenario=Decode(steps=16))`` on a sim
         built for training).
 
-        ``perturb`` (a degraded-fleet perturbation) keeps its place in
-        the signature; the perturbation module is not ported yet, so
-        anything but ``None`` raises ``NotImplementedError``.
+        ``perturb`` (a :class:`repro_torch.core.perturb.Perturbation`)
+        models a degraded fleet — straggler slowdowns and injected
+        failures with checkpoint-restore recovery — and returns a
+        :class:`repro_torch.core.perturb.DegradedRun` (a multi-step
+        spliced timeline) instead of a single-step :class:`SimBatch`.
+        ``perturb=None`` is the byte-identical unperturbed path.
         """
         if perturb is not None:
-            raise NotImplementedError(
-                "simulate(perturb=...) needs repro_torch.core.perturb, "
-                "which is not ported yet; pass perturb=None")
+            if scenario is not None or positions is not None:
+                raise ValueError(
+                    "perturb composes a multi-step run over the sim's "
+                    "own scenario/positions; per-call overrides are "
+                    "not supported together")
+            from repro_torch.core.perturb import simulate_degraded
+            return simulate_degraded(
+                self, perturb, seeds=seeds, jitter_sigma=jitter_sigma,
+                straggler_sigma=straggler_sigma, clock_sigma=clock_sigma)
         sc = self.scenario if scenario is None else scenario
         engine = self.engine(positions, scenario=sc)
         if seeds is None:

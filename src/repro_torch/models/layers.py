@@ -263,8 +263,9 @@ def _flash_bwd_impl(q, k, v, q_pos, k_pos, out, lse, dout, causal, window,
     """FlashAttention backward: blockwise recompute of p from (q, k, lse).
     Live memory O(block_q x block_kv); no O(S²) residuals. The layout of
     :func:`_flash_fwd_impl`, dout like out; returns dq, and dk, dv per
-    query head, in fp32 and that layout. The softmax scale multiplies
-    the small dq, dk products instead of the score-sized ds."""
+    query head, in fp32 and that layout. ds is scaled before its cast to
+    q's dtype, as the reference rounds it (p·(dp − δ), then ·scale); the
+    scale rides on the cast's pass."""
     b, h, _, hd = q.shape
     scale = hd ** -0.5
     delta = (dout.float() * out.float()).sum(dim=-1)        # (B,H,Sq')
@@ -294,10 +295,13 @@ def _flash_bwd_impl(q, k, v, q_pos, k_pos, out, lse, dout, causal, window,
                 msk = _block_mask(qpblk, kpblk, causal, window)
                 p.masked_fill_(~msk[:, None], 0.0)
             dv.add_(p.to(dout.dtype).transpose(-1, -2) @ doblk)
-            ds = _dots(doblk, vblk).sub_(delta[:, :, qs, None]).mul_(p)
-            ds = ds.to(q.dtype)
-            dq[i].add_(ds @ kblk, alpha=scale)
-            dk.add_(ds.transpose(-1, -2) @ qblk, alpha=scale)
+            dp = _dots(doblk, vblk).sub_(delta[:, :, qs, None])
+            # p·(dp − δ), then ·scale as the cast's own pass: the
+            # reference's operand order and rounding points
+            ds = torch.mul(dp.mul_(p), scale,
+                           out=torch.empty_like(dp, dtype=q.dtype))
+            dq[i].add_(ds @ kblk)
+            dk.add_(ds.transpose(-1, -2) @ qblk)
         dks.append(dk)
         dvs.append(dv)
     return (torch.cat(dq, dim=2), torch.cat(dks, dim=2),
@@ -308,9 +312,12 @@ class _FlashCore(torch.autograd.Function):
     """The reference's ``custom_vjp`` around ``_flash_core`` as one
     Function: the blockwise forward, and a backward that recomputes p
     block by block from what it saved — q (in its head-major layout),
-    the un-repeated k and v, out and lse. The backward repeats K/V again
-    and sums each KV head's dk, dv over its query heads in fp32 before
-    the cast to k's dtype."""
+    the un-repeated k and v, out and lse. The backward repeats K/V again,
+    casts each query head's dk, dv to k's dtype and then adds them up
+    over the query heads of a KV head, one head after the other in k's
+    dtype: the reference's ``custom_vjp`` returns per-head gradients in
+    k's dtype, and the transpose of its ``_repeat_kv`` adds them up in
+    that order."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, causal, window, block_q,
@@ -338,8 +345,11 @@ class _FlashCore(torch.autograd.Function):
             window, block_q, block_kv, pairs)
 
         def per_kv_head(g):      # the gradient of repeating K/V
-            return g.view(b, kh, n_rep, -1, hd)[:, :, :, :sk].sum(dim=2) \
-                .transpose(1, 2).to(k.dtype)
+            g = g.view(b, kh, n_rep, -1, hd)[:, :, :, :sk].to(k.dtype)
+            total = g[:, :, 0]
+            for r in range(1, n_rep):        # in k's dtype, head by head
+                total = total + g[:, :, r]
+            return total.transpose(1, 2)
 
         return (dq[:, :, :sq].transpose(1, 2).to(qh.dtype), per_kv_head(dk),
                 per_kv_head(dv), None, None, None, None, None, None)

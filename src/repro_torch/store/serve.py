@@ -31,6 +31,7 @@ from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.events import Strategy
 from repro_torch.core.megabatch import MegaBatch
 from repro_torch.core.modelgraph import kv_cache_bytes
+from repro_torch.core.perturb import Perturbation, perturbation_from_dict
 from repro_torch.core.profiler import provider_for
 from repro_torch.core.scenario import TRAIN, Scenario, scenario_from_dict
 from repro_torch.search.prune import HBM_BUDGET, estimate_memory
@@ -52,16 +53,8 @@ class ServeQuery:
     cluster: str = H100_CLUSTER.name      # registry name
     scenario: Scenario = TRAIN
     # degraded-fleet what-if: a straggler plane applied at predict
-    # time (run-level only — builds/store addresses never key on it).
-    # The perturbation module is not ported yet: the field keeps its
-    # place and anything but None raises (it is never ignored).
-    perturb: Optional[object] = None
-
-    def __post_init__(self):
-        if self.perturb is not None:
-            raise NotImplementedError(
-                "ServeQuery(perturb=...) needs repro_torch.core.perturb, "
-                "which is not ported yet; pass perturb=None")
+    # time (run-level only — builds/store addresses never key on it)
+    perturb: Optional[Perturbation] = None
 
     def to_dict(self) -> Dict:
         d = dataclasses.asdict(self)
@@ -69,7 +62,10 @@ class ServeQuery:
         d["scenario"] = self.scenario.to_dict()
         # the scenario-key pattern: an absent axis is OMITTED, so every
         # pre-perturb serialized query/report stays byte-identical
-        del d["perturb"]
+        if self.perturb is None:
+            del d["perturb"]
+        else:
+            d["perturb"] = self.perturb.to_dict()
         return d
 
     @classmethod
@@ -77,11 +73,7 @@ class ServeQuery:
         d = dict(d)
         d["strategy"] = Strategy.from_dict(d["strategy"])
         d["scenario"] = scenario_from_dict(d.get("scenario"))
-        if d.get("perturb") is not None:
-            raise NotImplementedError(
-                "a serialized perturbation needs repro_torch.core.perturb, "
-                "which is not ported yet")
-        d["perturb"] = None
+        d["perturb"] = perturbation_from_dict(d.get("perturb"))
         from repro_torch.core.serde import dataclass_from_dict
         return dataclass_from_dict(cls, d)
 

@@ -34,11 +34,12 @@ def value_and_grad(loss_fn: Callable, params: Any,
     """``(loss, grads)`` of ``loss_fn(params, batch)``, the gradients a
     tree like ``params`` in each parameter's dtype. The caller's tensors
     are not marked as requiring grad; a parameter that the loss does not
-    reach raises instead of getting no gradient."""
+    reach gets zeros, as under ``jax.value_and_grad``."""
     with torch.enable_grad():
         tree = map_leaves(lambda p: p.detach().requires_grad_(), params)
         loss = loss_fn(tree, batch)
-        grads = torch.autograd.grad(loss, leaves(tree))
+        grads = torch.autograd.grad(loss, leaves(tree), allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), unflatten_like(params, grads)
 
 

@@ -42,7 +42,10 @@ def test_there_is_something_to_check():
             "flash_attention.py", "rmsnorm.py", "ops.py", "lm.py",
             "convert.py", "chip_smoke.py", "pipeline.py", "optimizer.py",
             "checkpoint.py", "fault_tolerance.py", "train_loop.py",
-            "tree.py", "step.py"} <= names
+            "tree.py", "step.py", "perturb.py", "space.py", "cache.py",
+            "engine.py", "report.py", "search.py", "metrics.py",
+            "sweep.py", "executor.py", "degraded.py", "__main__.py",
+            "_polling_reference.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -99,4 +102,4 @@ def test_importing_every_module_pulls_in_neither():
                           capture_output=True, text=True, env=env,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 40
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 75

@@ -179,9 +179,26 @@ def test_default_device_is_the_card_and_never_the_cpu():
 
 
 def test_perturb_is_refused_not_ignored():
-    engines = engines_of(port, port_configs, STRAT_KW[:1])
-    with pytest.raises(NotImplementedError, match="perturb"):
-        port.MegaBatch(engines, perturb=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="perturb"):
-        port.megabatch_predict(engines, perturb=object(), device="cpu")
-    assert port.MegaBatch(engines, perturb=None, device="cpu").K == 1
+    """A perturbation the one-step program cannot model is refused (a
+    fault, a straggler that is not uniform across DP); one it can is
+    applied, never dropped. ``tests/test_torch_perturb.py`` holds the
+    perturbed lanes against the reference."""
+    engines = engines_of(port, port_configs, STRAT_KW[1:2])     # dp 2
+    fault = port.Perturbation(faults=(port.Fault(0, 1),), steps=4)
+    with pytest.raises(ValueError, match="run level"):
+        port.MegaBatch(engines, perturb=fault, device="cpu")
+    with pytest.raises(ValueError, match="run level"):
+        port.megabatch_predict(engines, perturb=fault, device="cpu")
+    dp, pp, mp = (engines[0].strat.dp, engines[0].strat.pp,
+                  engines[0].strat.mp)
+    with pytest.raises(ValueError, match="uniform across DP"):
+        port.MegaBatch(engines, perturb=port.Perturbation(
+            stragglers=(port.Straggler(0, 2.0),)),
+            device="cpu").predict("numpy")
+    slow = port.Perturbation(stragglers=tuple(
+        port.Straggler(r * pp * mp, 2.0) for r in range(dp)))
+    clean = port.MegaBatch(engines, perturb=None, device="cpu")
+    assert clean.K == 1
+    assert port.MegaBatch(engines, perturb=slow, device="cpu") \
+        .predict("numpy").batch_times[0] > \
+        clean.predict("numpy").batch_times[0]

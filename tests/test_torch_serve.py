@@ -224,13 +224,15 @@ def test_unknown_cluster_and_perturb_raise(tmp_path):
     with pytest.raises(ValueError, match="unknown cluster"):
         server.answer(port_store.ServeQuery(
             "gpt2_345m", port.Strategy(), cluster="nope"))
-    with pytest.raises(NotImplementedError, match="perturb"):
-        port_store.ServeQuery("gpt2_345m", port.Strategy(),
-                              perturb=object())
-    with pytest.raises(NotImplementedError, match="perturb"):
+    with pytest.raises(ValueError, match="run level"):
+        server.answer(port_store.ServeQuery(
+            "gpt2_345m", port.Strategy(), cluster="a40-cluster",
+            perturb=port.Perturbation(faults=(port.Fault(0, 1),),
+                                      steps=4)))
+    with pytest.raises(ValueError, match="straggler rank"):
         port_store.ServeQuery.from_dict(
             {"arch": "gpt2_345m", "strategy": port.Strategy().to_dict(),
-             "perturb": {"stragglers": []}})
+             "perturb": {"stragglers": [{"rank": -1, "factor": 2.0}]}})
 
 
 def test_serve_defaults_to_the_card(tmp_path):

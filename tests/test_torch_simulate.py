@@ -131,9 +131,19 @@ def test_copied_presets_are_unchanged():
 
 
 def test_perturb_is_refused_not_ignored():
+    """``simulate(perturb=)`` refuses a per-call override it cannot
+    compose with, and otherwise models the perturbation: a degraded
+    run, slower than the clean step (``tests/test_torch_perturb.py``
+    holds it against the reference)."""
     _, p = sims("gpt2_345m", False, SCHEDULES["1f1b"], "A40_CLUSTER")
-    with pytest.raises(NotImplementedError, match="perturb"):
-        p.simulate(perturb=object())
+    slow = port.Perturbation(stragglers=(port.Straggler(1, 2.0),),
+                             steps=2)
+    with pytest.raises(ValueError, match="scenario"):
+        p.simulate(perturb=slow, scenario=port_scn.Decode(steps=4))
+    run = p.simulate(perturb=slow)
+    assert isinstance(run, port.DegradedRun)
+    assert float(run.total_times[0]) > \
+        2 * float(p.simulate().batch_times[0])
 
 
 # ---- the H100 target: structural only (no reference has it) ----

@@ -182,6 +182,47 @@ def test_flash_backward_matches_naive_autograd(case):
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_bf16_flash_backward_rounds_where_the_reference_rounds(case):
+    """In bf16 the backward rounds at the reference's points: ds scaled
+    before its cast, each query head's dk, dv cast before the heads of a
+    KV head are added up in bf16. What is left are fp32 results a ulp
+    apart (GEMM sums in another order, exp, the scaled-score add) that
+    flip a few bf16 roundings, far below the reference's own bf16 error
+    (rounding ds unscaled, or summing the heads in fp32 first, leaves
+    the port about as far from the reference as the reference is from
+    fp32)."""
+    causal, window, bq, bkv = FLASH_CASES[case][5:]
+    q, k, v, cot, pos = flash_inputs(case)
+    q, k, v, cot = (np.asarray(jnp.asarray(a, jnp.bfloat16))
+                    for a in (q, k, v, cot))
+    jpos = jnp.asarray(pos)
+
+    def ref_loss(q, k, v):
+        out = RL.attention_flash_jnp(q, k, v, jpos, jpos, causal, window,
+                                     bq, bkv)
+        return jnp.sum(out.astype(jnp.float32)
+                       * jnp.asarray(cot, jnp.float32))
+
+    want = jax.grad(ref_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    exact = jax.grad(ref_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a, jnp.float32) for a in (q, k, v)))
+    tq, tk, tv = (params_from_reference({"x": a}, device="cpu")["x"]
+                  .requires_grad_() for a in (q, k, v))
+    p = torch.from_numpy(pos)
+    out = L.attention_flash_torch(tq, tk, tv, p, p, causal, window, bq, bkv)
+    (out.float() * torch.from_numpy(cot.astype(np.float32))).sum() \
+        .backward()
+    for name, t, w, e in zip("qkv", (tq, tk, tv), want, exact):
+        assert t.grad.dtype == torch.bfloat16
+        g, w, e = (t.grad.float().numpy(), np.asarray(w, np.float32),
+                   np.asarray(e))
+        d_port = np.linalg.norm(g - w)
+        d_ref = np.linalg.norm(w - e)
+        assert d_port <= 0.05 * d_ref, (name, float(d_port), float(d_ref))
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_skipped_and_unmasked_block_pairs_change_no_bit(case):
     """Pairs the masks empty are skipped and pairs they leave whole go
     unmasked: the forward is bit-identical to masking every pair."""
@@ -281,6 +322,74 @@ def test_train_step_gradients_match_jax_grad(arch, impl):
         params_from_reference(tree, device="cpu"), to_port(batch))
     assert loss.grad_fn is None
     assert_leaves_close(got, want)
+
+
+def bf16_opts(impl):
+    return (dataclasses.replace(ref_opts(impl), dtype=jnp.bfloat16),
+            dataclasses.replace(port_opts(impl), dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("arch,impl", [("h2o_danube_1_8b", "flash_torch"),
+                                       ("qwen2_1_5b", "naive"),
+                                       ("gpt2_345m", "naive")])
+def test_bf16_train_step_gradients_round_as_the_reference(arch, impl):
+    """bf16 gradients through ``make_train_step``'s ``value_and_grad``
+    against ``jax.grad`` of the reference in bf16, on the same bf16
+    weights. Two bf16 paths differ by far more than fp32 ulps, so the bar
+    is relative, as the bf16 logits': per leaf, the port's distance from
+    the fp32 gradients is at most 1.5 x the reference's. The distance
+    is the L2 norm of the difference: a leaf's max |difference| is one
+    element at one or two bf16 ulps, a count too coarse to compare."""
+    ref_cfg, cfg = configs(arch)
+    tree = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)),
+                        reference_tree(ref_cfg, seed=4))
+    batch = lm_batch(cfg.vocab, 2, 150, seed=5)
+    ref16, port16 = bf16_opts(impl)
+    exact = ref_by_path(jax.grad(
+        lambda p: ref_lm.loss_fn(ref_cfg, p, to_ref(batch),
+                                 ref_opts(impl)))(
+        jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), tree)))
+    want = ref_by_path(jax.grad(
+        lambda p: ref_lm.loss_fn(ref_cfg, p, to_ref(batch), ref16))(
+        jax.tree.map(jnp.asarray, tree)))
+    _, grads = step_mod.value_and_grad(
+        api.build_model(cfg, port16).loss,
+        params_from_reference(tree, device="cpu"), to_port(batch))
+    got = by_path(grads)
+    assert set(got) == set(want) == set(exact)
+    for name, e in exact.items():
+        assert got[name].dtype == torch.bfloat16
+        d_port = np.linalg.norm(got[name].float().numpy() - e)
+        d_ref = np.linalg.norm(want[name].astype(np.float32) - e)
+        assert d_port <= 1.5 * d_ref, (name, float(d_port), float(d_ref))
+
+
+def test_a_leaf_the_loss_never_reaches_gets_zeros():
+    """``jax.value_and_grad`` gives zeros for a leaf the loss skips;
+    ``value_and_grad`` does the same instead of raising."""
+    rng = np.random.default_rng(8)
+    tree = {"a": arr(rng, 3, 4), "unused": arr(rng, 5),
+            "nested": {"b": arr(rng, 4), "skipped": arr(rng, 2, 2)}}
+    x = arr(rng, 2, 3)
+
+    def ref_loss(p, x):
+        return jnp.sum(jnp.tanh(x @ p["a"]) * p["nested"]["b"])
+
+    def port_loss(p, x):
+        return torch.sum(torch.tanh(x @ p["a"]) * p["nested"]["b"])
+
+    rloss, rgrads = jax.value_and_grad(ref_loss)(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(x))
+    loss, grads = step_mod.value_and_grad(
+        port_loss, params_from_reference(tree, device="cpu"),
+        torch.from_numpy(x))
+    np.testing.assert_allclose(float(loss), float(rloss), rtol=1e-6)
+    got, want = by_path(grads), ref_by_path(rgrads)
+    assert set(got) == set(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].numpy(), w, rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+    assert not got["unused"].any() and not got["nested/skipped"].any()
 
 
 def test_remat_gives_the_same_gradients():
