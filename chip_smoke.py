@@ -43,12 +43,14 @@ Around that it
   paths gave it (K1 bit-identical to its plain walk version and to the
   numpy reference; K2 within two bf16 ulps through its tensor-core
   variant, and on the same q, k, v upcast to fp32 at 2e-5 through its
-  scalar variant; K3 at 2e-2 in bf16) and on seeded cases (K1 on random
-  programs and chained ones with more chains a lane than it has walks;
-  K2 and K3 also in fp32 at 2e-5 / 1e-5, TF32 off; K2's bf16 cases
-  asserted to take the tensor cores, a bf16 head_dim 40 case the scalar
-  kernel), and times kernel, plain version and a PyTorch library call
-  there;
+  scalar variant; K3 within one bf16 ulp) and on seeded cases (K1 on
+  random programs and chained ones with more chains a lane than it has
+  walks; K2 and K3 also in fp32 at 2e-5 / 1e-5, TF32 off; K2's bf16
+  cases asserted to take the tensor cores, a bf16 head_dim 40 case the
+  scalar kernel; K3 on an unaligned view, d = 2561 and, in bf16, at
+  every d_model of the configs), and times kernel, plain version and a
+  PyTorch library call there (K3 also beside a same-bytes copy, with
+  each variant's ptxas registers and spills, no spill allowed);
 * checks the model's outputs by the repo's own means: prefill logits
   against the plain ``flash_torch`` attention path (in fp32 at 1e-4 x
   max |logit|; in bf16 the kernel path no further from the fp32 logits
@@ -116,8 +118,15 @@ K2_FP32_TOL = {"atol": 2e-5, "rtol": 2e-5}
 # query rows and keys of one tile of K2's tensor-core variant (BM = BN in
 # csrc/flash_attention_tc.cu), for the flops it issues
 K2_TC_TILE = 128
-# K3 against F.rms_norm: rounds of this many launches each, in turns
+# K3 against F.rms_norm (and a same-bytes copy): rounds of this many
+# launches each, in turns
 K3_ROUNDS, K3_REPS = 5, 200
+# K3 against its plain version: both compute in fp32 and round once, so a
+# reduction-order difference flips at most one bf16 rounding; fp32 1e-5
+K3_BF16_ULPS = 1
+K3_FP32_TOL = {"atol": 1e-5, "rtol": 1e-5}
+# rows of each case of K3's width sweep (the main shape's 2 x 8192)
+K3_SWEEP_ROWS = 16384
 # profiler activity types that are work on the device
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -1326,10 +1335,144 @@ def kernel_k2(fa, captured, launches: int, tc_launches: int) -> dict:
     }
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between two bf16 tensors in units in the last
+    place, counted on their ``uint16`` patterns (sign-magnitude mapped to
+    a line, so +0 and -0 coincide and a step across 0 counts its ulps)."""
+    def line(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    if not a.numel():
+        return 0
+    return int((line(a) - line(b)).abs().max().item())
+
+
+def k3_held(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    """K3's bar against its plain version: both compute in fp32 and round
+    once, so a reduction-order difference can flip at most one bf16
+    rounding (≤ 1 ulp, on the uint16 views); fp32 at 1e-5."""
+    err = max_abs_diff(got.float(), want.float())
+    if got.dtype == torch.bfloat16:
+        ulps = bf16_ulps(got, want)
+        check(ulps <= K3_BF16_ULPS, f"K3 != plain version on {what}: "
+              f"{ulps} bf16 ulps (max abs err {err})")
+        return {"max_abs_err": err, "max_ulps": ulps}
+    check(torch.allclose(got, want, **K3_FP32_TOL),
+          f"K3 != plain version on {what} (max abs err {err})")
+    return {"max_abs_err": err, "max_ulps": None}
+
+
+def k3_turns(fns: dict) -> dict:
+    """The functions of ``fns`` timed in turns on the same inputs,
+    ``K3_ROUNDS`` rounds of ``K3_REPS`` launches each, the order reversed
+    every other round (ABC, CBA, ...), so the card's drift within the
+    call falls on all of them: per name the rounds' ms, their median and
+    their spread."""
+    rounds = {name: [] for name in fns}
+    order = list(fns.items())
+    for r in range(K3_ROUNDS):
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
+            rounds[name].append(timed_ms(fn, reps=K3_REPS))
+    return {name: {"ms": v, "median_ms": float(np.median(v)),
+                   "spread_ms": float(max(v) - min(v))}
+            for name, v in rounds.items()}
+
+
+def k3_verdict(turns: dict) -> str:
+    """K3 against ``F.rms_norm``: ``ahead`` or ``behind`` where the medians
+    differ by more than the larger of the two spreads, else ``level``."""
+    k3, lib = turns["k3"], turns["library"]
+    spread = max(k3["spread_ms"], lib["spread_ms"])
+    if lib["median_ms"] - k3["median_ms"] > spread:
+        return "ahead"
+    return "behind" if k3["median_ms"] - lib["median_ms"] > spread \
+        else "level"
+
+
+def k3_bytes(x: torch.Tensor, scale: torch.Tensor) -> int:
+    """What K3 must move: x read once, out written once, the scale read
+    once."""
+    return 2 * x.numel() * x.element_size() \
+        + scale.numel() * scale.element_size()
+
+
+def device_and_host(fn, reps: int) -> dict:
+    """Whether a run of ``reps`` back-to-back calls measures the device:
+    ``torch.profiler`` over one such run gives each kernel's device
+    duration (median per name) and the device µs a call; the host µs a
+    call is the wall clock over issuing ``reps`` calls without a
+    synchronise. A call is device-bound where its host µs are below its
+    device µs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    work = [e for e in prof.events() if is_device_work(e)]
+    check(bool(work), "the profiler saw no work on the device")
+    by_name: dict = {}
+    for e in work:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    device_us = sum(sum(v) for v in by_name.values()) / reps
+    return {"host_us_per_call": host_us, "device_us_per_call": device_us,
+            "device_bound": host_us < device_us,
+            "kernels": [{"kernel": name[:120], "launches": len(v),
+                         "median_us": float(np.median(v))}
+                        for name, v in sorted(by_name.items())]}
+
+
+def k3_ptxas(text: str) -> list:
+    """ptxas's registers and spills for each of K3's kernels, named by
+    variant, x dtype and vectors a thread (register variant) or scale
+    dtype (general variant)."""
+    names = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+             "6__half": "float16"}
+    rows = []
+    for r in ptxas_report(text):
+        fn = r["function"]
+        m = re.search(r"rmsnorm_rowsI(f|13__nv_bfloat16)Li(\d+)E", fn)
+        # a repeated type is mangled as a back-reference (S1_, S2_, ...)
+        g = re.search(r"rmsnorm_generalI(f|13__nv_bfloat16)"
+                      r"(f|13__nv_bfloat16|6__half|S\d*_)E", fn)
+        if m:
+            label = {"variant": "rows", "x": names[m.group(1)],
+                     "vpt": int(m.group(2))}
+        elif g:
+            x = names[g.group(1)]
+            label = {"variant": "general", "x": x,
+                     "scale": names.get(g.group(2), x)}
+        else:
+            label = {"variant": "unknown", "function": fn[:120]}
+        rows.append({**label, "registers": r.get("registers"),
+                     "spill_stores": r.get("spill_stores", 0),
+                     "spill_loads": r.get("spill_loads", 0)})
+    return rows
+
+
+def config_widths() -> list:
+    """Every distinct d_model of the port's configs."""
+    from repro_torch.configs.base import get_config, list_archs
+    return sorted({get_config(a).d_model for a in list_archs()})
+
+
 def kernel_k3(rn, captured, launches: int) -> dict:
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     x, final_norm = captured["final_norm_input"], captured["final_norm"]
     x2 = x.reshape(-1, x.shape[-1])
+    d = x2.shape[-1]
+    check(rn.plan(d, x2.dtype, final_norm.dtype).variant == "rows",
+          f"the main shape {tuple(x2.shape)} did not plan the register "
+          f"variant")
+    ptxas = k3_ptxas(build.NVCC_OUTPUT.get("rmsnorm", ""))
+    spilled = [r for r in ptxas if r["spill_stores"] or r["spill_loads"]]
+    check(not spilled, f"K3 variants spill: {spilled}")
 
     def kernel():
         return rn.rmsnorm_cuda(x2, final_norm)
@@ -1338,50 +1481,91 @@ def kernel_k3(rn, captured, launches: int) -> dict:
     torch.cuda.synchronize()
     plain = rn.rmsnorm_plain(x2, final_norm)
     plain_ms = timed_ms(lambda: rn.rmsnorm_plain(x2, final_norm), reps=5)
-    err = max_abs_diff(out.float(), plain.float())
-    check(torch.allclose(out.float(), plain.float(), atol=2e-2, rtol=2e-2),
-          f"K3 != plain version on the final norm's input (max abs err "
-          f"{err})")
-    d = x2.shape[-1]
+    main_bar = k3_held(out, plain, f"the final norm's input {tuple(x2.shape)}")
+    err, worst_ulps = main_bar["max_abs_err"], main_bar["max_ulps"] or 0
+    del plain
 
     def library():
         return torch.nn.functional.rms_norm(x2, (d,), final_norm, eps=1e-6)
 
-    library()
-    # K3 and F.rms_norm in turns on the same input (ABBA order), so the
-    # card's drift within the call falls on both
-    paired = {"k3": [], "library": []}
-    for r in range(K3_ROUNDS):
-        order = (("k3", kernel), ("library", library))
-        for name, fn in (order if r % 2 == 0 else order[::-1]):
-            paired[name].append(timed_ms(fn, reps=K3_REPS))
-    med = {k: float(np.median(v)) for k, v in paired.items()}
-    spread = {k: float(max(v) - min(v)) for k, v in paired.items()}
-    ms, library_ms = med["k3"], med["library"]
-    behind = ms - library_ms > max(spread.values())
-    log(f"kernels: K3 {ms:.5f} ms, F.rms_norm {library_ms:.5f} ms "
-        f"(medians of {K3_ROUNDS} x {K3_REPS})")
+    copy_out = torch.empty_like(x2)
 
+    def copy():
+        return copy_out.copy_(x2)
+
+    library()
+    copy()
+    turns = k3_turns({"k3": kernel, "library": library, "copy": copy})
+    ms, library_ms = turns["k3"]["median_ms"], turns["library"]["median_ms"]
+    copy_ms = turns["copy"]["median_ms"]
+    verdict = k3_verdict(turns)
+    log(f"kernels: K3 {ms:.5f} ms, F.rms_norm {library_ms:.5f} ms, copy "
+        f"{copy_ms:.5f} ms (medians of {K3_ROUNDS} x {K3_REPS}): {verdict}")
+    evidence = {"k3": device_and_host(kernel, K3_REPS),
+                "library": device_and_host(library, K3_REPS),
+                "copy": device_and_host(copy, K3_REPS)}
+    del copy_out
+
+    # every config width, bf16 x and scale, at the main shape's rows
+    sweep = []
+    g = torch.Generator("cuda").manual_seed(17)
+    for w in config_widths():
+        xs = torch.randn((K3_SWEEP_ROWS, w), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        sc = torch.randn((w,), generator=g, device="cuda").to(torch.bfloat16)
+        p = rn.plan(w, xs.dtype, sc.dtype)
+        bar = k3_held(rn.rmsnorm_cuda(xs, sc), rn.rmsnorm_plain(xs, sc),
+                      f"the sweep's ({K3_SWEEP_ROWS}, {w}) bf16")
+        worst_ulps = max(worst_ulps, bar["max_ulps"])
+        co = torch.empty_like(xs)
+        t = k3_turns({
+            "k3": lambda: rn.rmsnorm_cuda(xs, sc),
+            "library": lambda: torch.nn.functional.rms_norm(
+                xs, (w,), sc, eps=1e-6),
+            "copy": lambda: co.copy_(xs)})
+        nb = k3_bytes(xs, sc)
+        sweep.append({
+            "d": w, "plan": p._asdict(), **bar,
+            "k3_median_ms": t["k3"]["median_ms"],
+            "library_median_ms": t["library"]["median_ms"],
+            "copy_median_ms": t["copy"]["median_ms"],
+            "k3_spread_ms": t["k3"]["spread_ms"],
+            "library_spread_ms": t["library"]["spread_ms"],
+            "verdict": k3_verdict(t),
+            "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
+            "achieved_tb_per_s": nb / t["k3"]["median_ms"] / 1e9,
+            "library_tb_per_s": nb / t["library"]["median_ms"] / 1e9})
+        log(f"kernels: K3 sweep d={w}: {sweep[-1]['k3_median_ms']:.5f} / "
+            f"{sweep[-1]['library_median_ms']:.5f} ms, {sweep[-1]['verdict']}")
+        del xs, co
+
+    # seeded odd cases: the reference's test shapes, an unaligned view
+    # (contiguous, one element past a 16-byte boundary) and d = 2561
     cases = []
     for i, shape in enumerate(((8, 128), (3, 100, 96), (2, 5, 7, 256),
-                               (1, 512))):
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            g = torch.Generator("cuda").manual_seed(i)
-            xs = torch.randn(shape, generator=g, device="cuda").to(dtype)
-            sc = torch.randn(shape[-1:], generator=g, device="cuda")
+                               (1, 512), "unaligned", (7, 2561))):
+        for dtype in (torch.float32, torch.bfloat16):
+            gi = torch.Generator("cuda").manual_seed(i)
+            if shape == "unaligned":
+                buf = torch.randn(37 * 2560 + 1, generator=gi,
+                                  device="cuda").to(dtype)
+                xs = buf[1:].view(37, 2560)
+            else:
+                xs = torch.randn(shape, generator=gi, device="cuda").to(dtype)
+            sc = torch.randn(xs.shape[-1:], generator=gi, device="cuda")
+            p = rn.plan(xs.shape[-1], dtype, sc.dtype,
+                        xs.data_ptr() % 16 == 0)
             got = ops.rmsnorm(xs, sc)
             torch.cuda.synchronize()
-            want = rn.rmsnorm_plain(xs, sc)
-            e = max_abs_diff(got.float(), want.float())
-            check(torch.allclose(got.float(), want.float(), atol=tol,
-                                 rtol=tol),
-                  f"K3 != plain version on {shape} {dtype} (max abs err {e})")
-            cases.append({"shape": list(shape),
+            bar = k3_held(got, rn.rmsnorm_plain(xs, sc),
+                          f"{shape} {dtype}")
+            worst_ulps = max(worst_ulps, bar["max_ulps"] or 0)
+            cases.append({"shape": list(xs.shape) if shape != "unaligned"
+                          else ["unaligned", *xs.shape],
                           "dtype": str(dtype).split(".")[-1],
-                          "max_abs_err": e, "tolerance": tol})
+                          "variant": p.variant, **bar})
 
-    nbytes = 2 * x2.numel() * x2.element_size() \
-        + final_norm.numel() * final_norm.element_size()
+    nbytes = k3_bytes(x2, final_norm)
     flops = 4 * x2.numel()                  # square-add, two scalings
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS_PER_S * 1e3
@@ -1394,18 +1578,31 @@ def kernel_k3(rn, captured, launches: int) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
         "library": "torch.nn.functional.rms_norm",
-        "paired": {"rounds": K3_ROUNDS, "reps": K3_REPS, "order": "ABBA",
-                   "k3_ms": paired["k3"], "library_ms": paired["library"],
-                   "k3_median_ms": med["k3"],
-                   "library_median_ms": med["library"],
-                   "k3_spread_ms": spread["k3"],
-                   "library_spread_ms": spread["library"],
-                   "verdict": "behind" if behind else "level or ahead"},
-        "dtype": "bfloat16", "tolerance": "atol = rtol = 2e-2",
+        "copy_ms": copy_ms,
+        "plan": rn.plan(d, x2.dtype, final_norm.dtype)._asdict(),
+        "paired": {"rounds": K3_ROUNDS, "reps": K3_REPS,
+                   "order": "ABC, CBA (K3, F.rms_norm, copy)",
+                   "k3_ms": turns["k3"]["ms"],
+                   "library_ms": turns["library"]["ms"],
+                   "copy_ms": turns["copy"]["ms"],
+                   "k3_median_ms": ms, "library_median_ms": library_ms,
+                   "copy_median_ms": copy_ms,
+                   "k3_spread_ms": turns["k3"]["spread_ms"],
+                   "library_spread_ms": turns["library"]["spread_ms"],
+                   "copy_spread_ms": turns["copy"]["spread_ms"],
+                   "verdict": verdict},
+        "device_vs_host": evidence,
+        "sweep": sweep,
+        "ptxas": ptxas,
+        "dtype": "bfloat16",
+        "tolerance": f"bf16: at most {K3_BF16_ULPS} ulp (uint16 views); "
+                     f"fp32: atol = rtol = {K3_FP32_TOL['atol']}",
+        "max_ulps_seen": worst_ulps,
         "shape": {"x": list(x2.shape), "scale_dtype":
                   str(final_norm.dtype).split(".")[-1]},
         "bound_bytes": nbytes,
         "achieved_tb_per_s": nbytes / ms / 1e9,
+        "copy_tb_per_s": nbytes / copy_ms / 1e9,
         "cases": cases,
     }
 
