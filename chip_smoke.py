@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths once, each at full width, each with its
+Drives the port's paths once, each at full width, each with its
 kernels' launch counts set to 0 just before it and read just after:
 
 * the serve path (gpt_145b: 80 layers, d_model 12288, d_ff 49152):
@@ -29,6 +29,18 @@ kernels' launch counts set to 0 just before it and read just after:
   through ``make_serve_step``, and the
   final norm's input through ``ops.rmsnorm`` (kernel K3, whose only
   entry is that public op: the reference's model never calls it);
+* the model families, one at a time from a freed card, each with random
+  bf16 weights from a seeded generator on the card: qwen3_moe_30b_a3b
+  (MoE, 48 layers, 128 experts top-8; B=1 x S=4096 prefill, K2 once a
+  layer at 8 query heads a KV head), mamba2_2_7b (SSM, 64 layers;
+  B=2 x S=8192 chunked-SSD prefill, no kernel), jamba_v0_1_52b (hybrid,
+  full width but cut to one 8-layer period: K2 once) and t5_large
+  (encoder-decoder; B=2, 4096 encoder and 1024 decoder tokens: K2 36
+  times, 12 of them cross-attention with Sq != Sk), each with a greedy
+  decode and each prefill's layer-0 attention of every kind held
+  against K2's plain version on the tensor cores; in fp32 at 2 layers
+  (jamba at its 8, t5_large whole; an MoE at the dropless capacity)
+  the kernel path against the plain path and decode == forward;
 * the training path (the same model): ``fit`` (see below), which
   launches none of the kernels, as the reference's training path calls
   no Pallas kernel.
@@ -56,6 +68,13 @@ Around that it
   max |logit|; in bf16 the kernel path no further from the fp32 logits
   than 1.5 x the plain path), and fp32 decode against the fp32 forward
   at the reference's decode bar (2e-3);
+* runs the static verifier (``repro_torch.analyze``) over the serve
+  programs (clean and perturbed), the search program, every engine of
+  the serve grid and both perturbations, gated on zero findings, and
+  counts (ungated) the grid's strategies that do not fit the card's HBM;
+* holds K2 on cross-attention (non-causal, Sq != Sk) against its plain
+  version on seeded shapes and on t5_large's captured inputs, timed
+  beside ``scaled_dot_product_attention``;
 * profiles the unique events of one full-width pipeline stage with
   ``TorchMeasuredProvider`` on the card;
 * trains: ``fit`` takes 6 AdamW steps of the same h2o_danube_1_8b at full
@@ -75,7 +94,8 @@ Around that it
 
 Every phase prints one JSON object on a line of its own (``env``,
 ``build``, then ``kernels``, ``profile``, ``model``, ``serve``,
-``search``, ``degraded``, ``train``, ``loop_check``, ``train_check``);
+``search``, ``degraded``, ``analyze``, ``families``, ``train``,
+``loop_check``, ``train_check``);
 then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises: the run exits non-zero and
@@ -557,7 +577,7 @@ def phase_serve(port, store_mod, scan, store_dir: str):
                  "schedule": grid[best].schedule,
                  "batch_time": float(bt_cold[best])},
     }
-    return line, mb, launches
+    return line, mb, launches, (mb_slow, pert)
 
 
 def port_config(name: str):
@@ -711,7 +731,7 @@ def phase_search(port, scan) -> dict:
     depth = dag_depth(mb)
     layout = mb.walk_layout()
     best = cold.best()
-    return {
+    return mb, {
         "phase": "search", "arch": ARCH, "devices": N_DEVICES,
         "global_batch": GLOBAL_BATCH, "seq": SEQ,
         "cluster": port.H100_CLUSTER.name,
@@ -765,7 +785,8 @@ def phase_degraded(port) -> dict:
     check(rec.restore_bytes > 0, "the restore read moved no byte")
     log(f"degraded: {cell.label()} {float(run.total_times[0]):.3f}s "
         f"over {pert.steps} steps")
-    return {"phase": "degraded", "arch": ARCH, "cluster": CLUSTER,
+    return (strat, pert), {
+            "phase": "degraded", "arch": ARCH, "cluster": CLUSTER,
             "strategy": strat.label(), "perturbation": pert.label(),
             "global_batch": GLOBAL_BATCH, "seq": SEQ, "steps": pert.steps,
             "segments": [[sg.start, sg.stop] for sg in run.segments],
@@ -1264,6 +1285,7 @@ def kernel_k2(fa, captured, launches: int, tc_launches: int) -> dict:
         + [((2, 256, 4, 2, 64), c, None) for c in (True, False)] \
         + [((1, 200, 8, 2, 32), c, None) for c in (True, False)] \
         + [((2, 64, 2, 1, 128), c, None) for c in (True, False)] \
+        + [((1, 300, 16, 2, 64), c, None) for c in (True, False)] \
         + [((1, 160, 4, 2, 32), True, w) for w in (16, 64, 1000)] \
         + [((1, 300, 8, 2, 80), True, 64), ((1, 150, 8, 2, 80), False, 40)]
     for shape, c, w in shapes:
@@ -1860,6 +1882,557 @@ def phase_train_check() -> dict:
             "seconds": {"cuda": gpu["seconds"], "cpu": cpu["seconds"]}}
 
 
+# --------------------------------------------------------------------------
+# the static verifier over what the serve, search and degraded phases built
+# --------------------------------------------------------------------------
+
+def phase_analyze(port, serve, search_mb, degraded) -> dict:
+    """``repro_torch.analyze`` over the objects the earlier phases built,
+    outside their timed windows: ``verify_megabatch`` on the clean serve
+    program, the perturbed one and the search program;
+    ``verify_engine`` on every engine of the serve grid;
+    ``verify_perturbation`` on the serve path's straggler (for each
+    strategy it perturbed) and on the degraded run's perturbation — all
+    gated on zero findings. Then ``verify_cell_memory`` over the grid at
+    the card's HBM, whose G010 findings (a strategy that does not fit)
+    are counted, not gated."""
+    from repro_torch.analyze import (verify_cell_memory, verify_engine,
+                                     verify_megabatch, verify_perturbation)
+    from repro_torch.core.scenario import TRAIN
+    mb, mb_slow, pert = serve
+    d_strat, d_pert = degraded
+    seconds, findings = {}, {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        fs = fn()
+        seconds[name] = time.perf_counter() - t0
+        findings[name] = [str(f) for f in fs]
+        log(f"analyze: {name} {len(fs)} findings, {seconds[name]:.2f}s")
+
+    for name, prog in (("megabatch_serve", mb), ("megabatch_perturbed",
+                                                  mb_slow),
+                       ("megabatch_search", search_mb)):
+        run(name, lambda prog=prog: verify_megabatch(prog))
+    engines = list({id(e): e for e in mb.engines + mb_slow.engines}
+                   .values())
+    run("engines", lambda: [f for e in engines for f in verify_engine(e)])
+    run("perturbations", lambda: [
+        f for e in mb_slow.engines
+        for f in verify_perturbation(pert, e.strat)]
+        + verify_perturbation(d_pert, d_strat))
+    for name, fs in findings.items():
+        check(fs == [], f"analyze: {name}: {fs[:5]}")
+
+    cfg = port_config(ARCH)
+    hbm = port.H100_CLUSTER.chip.hbm_bytes
+    t0 = time.perf_counter()
+    g010 = [f for e in mb.engines for f in verify_cell_memory(
+        cfg, e.strat, TRAIN.microbatch_size(e.strat, GLOBAL_BATCH), SEQ,
+        hbm)]
+    seconds["cell_memory"] = time.perf_counter() - t0
+    check({f.rule for f in g010} <= {"G010"}, "cell memory: other rules")
+    return {"phase": "analyze", "programs": {
+                "serve": {"K": mb.K, "T": mb.T},
+                "perturbed": {"K": mb_slow.K, "T": mb_slow.T},
+                "search": {"K": search_mb.K, "T": search_mb.T}},
+            "engines": len(engines),
+            "engine_tasks": int(sum(e.total_tasks for e in engines)),
+            "perturbations": {"serve": pert.label(),
+                              "serve_strategies": mb_slow.K,
+                              "degraded": d_pert.label()},
+            "findings": sum(len(fs) for fs in findings.values()),
+            "gated": sorted(findings),
+            "cell_memory": {"cells": mb.K, "hbm_bytes": hbm,
+                            "g010_findings": len(g010),
+                            "gated": False},
+            "seconds": seconds}
+
+
+# --------------------------------------------------------------------------
+# the model families: MoE, SSM, hybrid and encoder-decoder at full width
+# --------------------------------------------------------------------------
+
+FAMILY_DECODE_BATCH = 8
+# the fp32 checks: depth cut to 2 layers (jamba keeps its one period,
+# t5_large stays whole), the kernel path against the plain flash_torch
+# path at FAMILY_TOL x max |logit|, decode == forward over PROMPT tokens
+# at the reference's 2e-3
+FAMILY_CHECK_LAYERS = 2
+FAMILY_TOL = 1e-4
+MOE_DISAGREE_MAX = 1e-3             # share of tokens whose experts differ
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """One config of the ``families`` line: its prefill batch (seeded
+    tokens of these shapes), the K2 launches one bf16 prefill must make
+    (``k2(cfg)``, all on the tensor cores; K1 and K3 none), the greedy
+    decode's steps, the depth of its fp32 checks (0: the depth it runs
+    at) and, where given, ``witness(cfg, params, batch)``, run on the
+    bf16 weights, whose dict joins the row."""
+    name: str
+    arch: str
+    shapes: dict
+    k2: object
+    decode_steps: int
+    check_layers: int = FAMILY_CHECK_LAYERS
+    layers: int = 0                 # a depth cut; 0: the config's own
+    reduced: str = ""
+    witness: object = None
+
+
+@contextlib.contextmanager
+def capture_attention(ops):
+    """While the block runs, keep the first ``ops.flash_attention`` call
+    of each kind (causal, bidirectional, cross: Sq != Sk) with its
+    arguments; the calls go through."""
+    got = {}
+    real = ops.flash_attention
+
+    def spy(q, k, v, q_pos=None, k_pos=None, **kw):
+        kind = "cross" if q.shape[1] != k.shape[1] else \
+            "causal" if kw.get("causal", True) else "bidirectional"
+        got.setdefault(kind, (q, k, v, kw))
+        return real(q, k, v, q_pos, k_pos, **kw)
+
+    ops.flash_attention = spy
+    try:
+        yield got
+    finally:
+        ops.flash_attention = real
+
+
+@contextlib.contextmanager
+def record_routing(moe):
+    """While the block runs, keep every MoE layer's top-k expert indices
+    (``moe.router_probs``'s second output), in call order."""
+    got = []
+    real = moe.router_probs
+
+    def spy(x2d, router_w, mcfg):
+        out = real(x2d, router_w, mcfg)
+        got.append(out[1])
+        return out
+
+    moe.router_probs = spy
+    try:
+        yield got
+    finally:
+        moe.router_probs = real
+
+
+def compare_paths(out: dict, experts: dict) -> dict:
+    """The prefill logits of the kernel path (``out["cuda"]``) against
+    the plain path's (``out["flash_torch"]``), with each path's top-k
+    experts of every MoE layer as :func:`record_routing` keeps them: the
+    tokens routed differently, and the largest difference over all
+    tokens, over the tokens whose experts agree, and over each
+    sequence's tokens before the first whose experts differ. Only that
+    last set is causally untouched by a flipped token, which reaches
+    every later position through attention and the SSM scans."""
+    b, s = out["cuda"].shape[:2]
+    agree = torch.ones((b, s), dtype=torch.bool, device=out["cuda"].device)
+    if experts["cuda"] or experts["flash_torch"]:
+        check(len(experts["cuda"]) == len(experts["flash_torch"]),
+              "routing not seen in both runs")
+        for x, y in zip(experts["cuda"], experts["flash_torch"]):
+            agree &= (torch.sort(x, dim=1).values
+                      == torch.sort(y, dim=1).values).all(dim=1).view(b, s)
+    before = agree.int().cummin(dim=1).values.bool()
+    a, p = out["cuda"].float(), out["flash_torch"].float()
+    return {"tokens": agree.numel(),
+            "tokens_routed_differently": int((~agree).sum()),
+            "tokens_before_first_flip": int(before.sum()),
+            "max_abs_logit": float(p.abs().max()),
+            "max_abs_diff": max_abs_diff(a, p),
+            "max_abs_diff_agreeing": max_abs_diff(a[agree], p[agree]),
+            "max_abs_diff_before_first_flip": max_abs_diff(a[before],
+                                                           p[before])}
+
+
+def both_paths(cfg, params, batch, dtype) -> dict:
+    """One prefill under ``attn_impl="cuda"`` and one under the plain
+    ``flash_torch``, compared by :func:`compare_paths`."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.train.step import make_prefill_step
+    out, experts = {}, {}
+    for impl in ("cuda", "flash_torch"):
+        with record_routing(moe) as experts[impl]:
+            out[impl] = make_prefill_step(cfg, L.ModelOptions(
+                dtype=dtype, attn_impl=impl))(params, batch)
+    return compare_paths(out, experts)
+
+
+def dropless(cfg):
+    """``cfg`` with its MoE at the dropless capacity, where no token is
+    dropped and routing is causal; ``cfg`` itself without an MoE."""
+    if cfg.moe is None:
+        return cfg
+    from repro_torch.models import moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=moe.dropless_capacity_factor(cfg.moe)))
+
+
+def routing_witness(cfg, params, batch) -> dict:
+    """Ungated, on the bf16 weights: the kernel path against the plain
+    path at the config's capacity factor and at the dropless one, where
+    capacity drops cannot spread a flipped token to other tokens."""
+    return {"bf16_kernel_vs_flash_torch": {
+        "config_capacity": both_paths(cfg, params, batch, torch.bfloat16),
+        "dropless_capacity": both_paths(dropless(cfg), params, batch,
+                                        torch.bfloat16)}}
+
+
+FAMILIES = (
+    Family("moe", "qwen3_moe_30b_a3b", {"tokens": (1, 4096)},
+           k2=lambda cfg: cfg.n_layers, decode_steps=64),
+    Family("ssm", "mamba2_2_7b", {"tokens": (2, 8192)},
+           k2=lambda cfg: 0, decode_steps=64),
+    # jamba's 32 layers (51.5 B parameters, 103 GB in bf16) do not fit
+    # one 80 GB card: one hybrid period of 8 layers does (13.3 B)
+    Family("hybrid", "jamba_v0_1_52b", {"tokens": (1, 4096)},
+           k2=lambda cfg: cfg.n_layers // cfg.hybrid_period,
+           decode_steps=32, check_layers=0, layers=8,
+           reduced="depth 32 -> 8 layers (one hybrid period): 51.5 B "
+                   "parameters do not fit one 80 GB card",
+           witness=routing_witness),
+    Family("encdec", "t5_large", {"tokens": (2, 1024),
+                                  "tokens_enc": (2, 4096)},
+           k2=lambda cfg: 3 * cfg.n_layers, decode_steps=64,
+           check_layers=0),
+)
+
+
+def counts(fa, rn, scan) -> dict:
+    return {"k1": scan.LAUNCHES, "k2": fa.LAUNCHES,
+            "k2_tc": fa.TC_LAUNCHES, "k3": rn.LAUNCHES}
+
+
+def free_card() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def family_params(cfg, dtype, seed=0):
+    from repro_torch.models import api as api_mod
+    from repro_torch.models import layers as L
+    dev = torch.device("cuda")
+    params = api_mod.build_model(cfg, L.ModelOptions(dtype=dtype)).init(
+        torch.Generator(dev).manual_seed(seed), dev)
+    return params, sum(t.numel() for t in _leaves(params))
+
+
+def tokens(cfg, shape, seed):
+    return torch.randint(0, cfg.vocab, shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(seed),
+                         dtype=torch.int32)
+
+
+def seeded_batch(cfg, shapes: dict, seed: int, rows: int = 0) -> dict:
+    return {key: tokens(cfg, (rows or shape[0], shape[1]), seed + i)
+            for i, (key, shape) in enumerate(shapes.items())}
+
+
+def decode_cache(cfg, params, opts, batch):
+    """A decode cache for ``batch``'s rows, as long as its ``tokens``;
+    for the encoder-decoder, ``batch["tokens_enc"]`` encoded once and its
+    cross K/V precomputed, as a server does."""
+    from repro_torch.models import encdec, lm
+    b, seq = batch["tokens"].shape
+    if not cfg.enc_dec:
+        return lm.init_cache(cfg, b, seq, opts, "cuda")
+    enc = batch["tokens_enc"]
+    enc_out = encdec.encode(cfg, params, params["embed"][enc.long()], opts)
+    cache = encdec.init_cache(cfg, b, seq, enc.shape[1], opts, "cuda")
+    cache["cross_k"], cache["cross_v"] = encdec.precompute_cross(
+        cfg, params, enc_out)
+    return cache
+
+
+def timed_prefill(prefill, params, batch, reps=3):
+    """(logits of the first run, median ms of ``reps`` runs after it)."""
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    ms = sorted(event_ms(lambda: prefill(params, batch))[1]
+                for _ in range(reps))
+    return logits, ms[len(ms) // 2], ms
+
+
+def greedy_decode(step, params, cache, tok, steps):
+    """One warm-up step, then ``steps`` greedy steps timed on the host
+    clock; returns (last logits, cache, seconds)."""
+    out, cache = step(params, cache, {"tokens": tok})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok = out.argmax(dim=-1, keepdim=True).to(torch.int32)
+        out, cache = step(params, cache, {"tokens": tok})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(bool(torch.isfinite(out).all()), "decode logits not finite")
+    return out, cache, seconds
+
+
+def decode_matches_forward(cfg, params, opts, batch, cache, key="tokens"):
+    """fp32: the prompt of ``batch[key]`` fed one token at a time into
+    ``cache`` against the forward's logits, at the reference's bar."""
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    full = make_prefill_step(cfg, opts)(params, batch)
+    step = make_serve_step(cfg, opts)
+    prompt = batch[key]
+    worst = 0.0
+    for i in range(prompt.shape[1]):
+        logits, cache = step(params, cache, {"tokens": prompt[:, i:i + 1]})
+        want = full[:, i]
+        worst = max(worst, max_abs_diff(logits, want))
+        check(bool(torch.isfinite(logits).all()) and torch.allclose(
+            logits, want, atol=2e-3, rtol=2e-3),
+            f"{cfg.name}: fp32 decode step {i} != forward ({worst})")
+    return {"dtype": "float32", "batch": prompt.shape[0],
+            "prompt": prompt.shape[1], "max_abs_diff": worst,
+            "max_abs_logit": float(full.abs().max()),
+            "tolerance": "atol = rtol = 2e-3"}
+
+
+def check_captured_k2(fa, captured: dict) -> dict:
+    """The first attention of each kind the bf16 prefill ran (its layer
+    0), through K2's tensor-core variant against the plain version at
+    two bf16 ulps."""
+    rows = {}
+    for kind, (q, k, v, kw) in captured.items():
+        rows[kind] = {"q": list(q.shape), "k": list(k.shape),
+                      "n_rep": q.shape[2] // k.shape[2],
+                      "causal": kw["causal"], "window": kw["window"],
+                      "max_abs_err": check_k2_case(
+                          fa, q, k, v, kw["causal"], kw["window"], True),
+                      "tolerance": K2_BF16_TOL}
+    return rows
+
+
+def fp32_checks(spec: Family, cfg, batch) -> dict:
+    """fp32, random weights, depth cut to ``spec.check_layers``, an MoE
+    at the dropless capacity: where the family has attention, the
+    kernel path against flash_torch on the prefill batch, at FAMILY_TOL
+    x max |logit| on each sequence's tokens before the first routed
+    differently, with under MOE_DISAGREE_MAX of them routed differently;
+    then decode == forward over a seeded prompt."""
+    from repro_torch.models import layers as L
+    if spec.check_layers:
+        cfg = dataclasses.replace(cfg, n_layers=spec.check_layers)
+    cfg = dropless(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = family_params(cfg, torch.float32)
+    log(f"families: {spec.arch} fp32, {cfg.n_layers} layers"
+        f"{', dropless' if cfg.moe else ''}: kernel path vs flash_torch, "
+        f"decode == forward")
+    row = {}
+    if spec.k2(cfg):
+        got = both_paths(cfg, params, batch, torch.float32)
+        check(got["tokens_routed_differently"]
+              <= MOE_DISAGREE_MAX * got["tokens"],
+              f"{spec.arch}: {got['tokens_routed_differently']} of "
+              f"{got['tokens']} tokens route differently")
+        check(got["max_abs_diff_before_first_flip"]
+              <= FAMILY_TOL * got["max_abs_logit"],
+              f"{spec.arch} fp32 kernel path differs from flash_torch: {got}")
+        row["fp32_check"] = {
+            "layers": cfg.n_layers, **got,
+            "capacity_factor": "dropless" if cfg.moe else None,
+            "tolerance": "1e-4 x max |logit| on the tokens before the "
+                         "first routed differently; under 0.1 % routed "
+                         "differently"}
+    opts = L.ModelOptions(dtype=torch.float32, attn_impl="cuda")
+    prompt = {"tokens": tokens(cfg, (2, PROMPT), 3)}
+    if cfg.enc_dec:
+        prompt["tokens_enc"] = tokens(cfg, (2, 512), 6)
+    row["decode_check"] = decode_matches_forward(
+        cfg, params, opts, prompt, decode_cache(cfg, params, opts, prompt))
+    row["decode_check"]["layers"] = cfg.n_layers
+    row["fp32_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return row
+
+
+def widths(cfg) -> dict:
+    row = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab}
+    if cfg.n_heads:
+        row.update(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                   head_dim=cfg.head_dim)
+    if cfg.d_ff:
+        row["d_ff"] = cfg.d_ff
+    if cfg.enc_dec:
+        row["layers"] = f"{cfg.n_layers} encoder + {cfg.n_layers} decoder"
+    if cfg.moe is not None:
+        row.update(experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                   d_ff_expert=cfg.moe.d_ff_expert,
+                   capacity_factor=cfg.moe.capacity_factor)
+    if cfg.ssm is not None:
+        row.update(d_state=cfg.ssm.d_state, ssd_head_dim=cfg.ssm.head_dim,
+                   ssd_heads=cfg.d_model * cfg.ssm.expand
+                   // cfg.ssm.head_dim, chunk=cfg.ssm.chunk)
+    return row
+
+
+def run_family(fa, rn, scan, spec: Family) -> tuple:
+    """One config from a freed card: random bf16 weights; a prefill with
+    the kernel counts reset just before and read just after, its layer-0
+    attention of each kind held against K2's plain version; the prefill
+    timed and profiled; the witness, if any; a greedy decode timed and
+    profiled; then, with the bf16 weights freed, the fp32 checks.
+    Returns the row and the captured attention inputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    cfg = port_config(spec.arch)
+    if spec.layers:
+        cfg = dataclasses.replace(cfg, n_layers=spec.layers)
+    opts = L.ModelOptions(dtype=torch.bfloat16, attn_impl="cuda")
+    params, n = family_params(cfg, torch.bfloat16)
+    stacks = sorted(k for k in params if k.endswith("_layers"))
+    batch = seeded_batch(cfg, spec.shapes, 1)
+    n_tokens = sum(t.numel() for t in batch.values())
+    log(f"families: {spec.arch}, {cfg.n_layers} layers, {n} parameters; "
+        f"prefill {spec.shapes}")
+    prefill = make_prefill_step(cfg, opts)
+    reset_launches((fa, rn, scan))
+    with capture_attention(ops) as captured:
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+    pre = counts(fa, rn, scan)
+    k2 = spec.k2(cfg)
+    check(pre == {"k1": 0, "k2": k2, "k2_tc": k2, "k3": 0},
+          f"{spec.arch} prefill launched {pre}, expected K2 {k2} times on "
+          f"the tensor cores and nothing else")
+    check(bool(torch.isfinite(logits[:, -128:]).all()),
+          "prefill logits not finite")
+    del logits
+    k2_checks = check_captured_k2(fa, captured)
+    _, ms, all_ms = timed_prefill(prefill, params, batch)
+    profile = device_breakdown(lambda: prefill(params, batch))
+    witness = spec.witness(cfg, params, batch) if spec.witness else {}
+    step = make_serve_step(cfg, opts)
+    cache = decode_cache(cfg, params, opts, seeded_batch(
+        cfg, spec.shapes, 5, rows=FAMILY_DECODE_BATCH))
+    tok = tokens(cfg, (FAMILY_DECODE_BATCH, 1), 2)
+    _, cache, dec_s = greedy_decode(step, params, cache, tok,
+                                    spec.decode_steps)
+    decode_profile = device_breakdown(lambda: [
+        step(params, cache, {"tokens": tok}) for _ in range(2)])
+    after = counts(fa, rn, scan)
+    check(after["k1"] == after["k3"] == 0 and (k2 or after["k2"] == 0),
+          f"{spec.arch} launched {after} over its run")
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, prefill, step
+    free_card()
+    prefill_row = {
+        "shapes": {k: list(t.shape) for k, t in batch.items()},
+        "ms_median": ms, "ms": all_ms,
+        "tokens_per_s": n_tokens / ms * 1e3,
+        "k2_launches": pre["k2"], "k2_tc_launches": pre["k2_tc"],
+        "launches": pre, "k2_checks": k2_checks, "profile": profile}
+    if cfg.moe is not None:
+        prefill_row["capacity"] = moe.capacity(
+            batch["tokens"].numel(), cfg.moe)
+    row = {"family": spec.name, "arch": spec.arch, "parameters": n,
+           **widths(cfg), "stacks": stacks, "dtype": "bfloat16",
+           "prefill": prefill_row,
+           "decode": {"batch": FAMILY_DECODE_BATCH,
+                      "steps": spec.decode_steps, "seconds": dec_s,
+                      "tokens_per_s":
+                      FAMILY_DECODE_BATCH * spec.decode_steps / dec_s,
+                      "profile_2_steps": decode_profile},
+           **witness, "peak_memory_bytes": peak}
+    if spec.reduced:
+        row["reduced"] = spec.reduced
+    row.update(fp32_checks(spec, cfg, batch))
+    return row, captured
+
+
+def phase_families(fa, rn, scan) -> tuple:
+    """The configs of FAMILIES, one at a time, each from a freed card."""
+    rows, seconds, captured = [], {}, {}
+    for spec in FAMILIES:
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        row, captured[spec.name] = run_family(fa, rn, scan, spec)
+        seconds[spec.name] = row["seconds"] = time.perf_counter() - t0
+        rows.append(row)
+        free_card()
+    return {"phase": "families", "configs": rows,
+            "weights": "random, torch.Generator seed 0 on the card",
+            "seconds": seconds}, captured["encdec"]
+
+
+def k2_cross(fa, captured) -> dict:
+    """K2 on non-causal attention with Sq != Sk: seeded cases (neither
+    length a multiple of the 128-key tile) in bf16 on the tensor cores at
+    hd 64 and 128, within two bf16 ulps of the plain version, and in
+    fp32 on the scalar kernel at 2e-5; then t5_large's captured
+    cross-attention inputs, held and timed against the plain version and
+    ``scaled_dot_product_attention(enable_gqa=True)``."""
+    cases = []
+    for sq, sk in ((1000, 1500), (1500, 1000)):
+        for hd in (64, 128):
+            for dtype in (torch.bfloat16, torch.float32):
+                g = torch.Generator("cuda").manual_seed(sq + hd)
+                q = torch.randn((1, sq, 8, hd), generator=g,
+                                device="cuda").to(dtype)
+                k, v = (torch.randn((1, sk, 2, hd), generator=g,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                tc = dtype == torch.bfloat16
+                e = check_k2_case(fa, q, k, v, False, None, tc)
+                cases.append({"sq": sq, "sk": sk, "heads": 8, "kv_heads": 2,
+                              "head_dim": hd,
+                              "dtype": str(dtype).split(".")[-1],
+                              "variant": "tensor_cores" if tc else "scalar",
+                              "max_abs_err": e})
+    q, k, v, kw = captured["cross"]
+    check(not kw["causal"] and kw["window"] is None, f"cross kwargs {kw}")
+    err = check_k2_case(fa, q, k, v, False, None, True)
+
+    def kernel():
+        return fa.flash_attention_cuda(q, k, v, causal=False)
+
+    ms = timed_ms(kernel, reps=20)
+    _, plain_ms = event_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                            causal=False))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True)
+
+    lib_err = max_abs_diff(library().transpose(1, 2).float(),
+                           kernel().float())
+    library_ms = timed_ms(library, reps=20)
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    flops = 4 * hd * b * h * sq * sk
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
+        + q.numel() * q.element_size()
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"cases": cases, "tolerance": {"bfloat16": K2_BF16_TOL,
+                                          "float32": K2_FP32_TOL},
+            "t5_cross": {"q": list(q.shape), "k": list(k.shape),
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms,
+                         "library": "scaled_dot_product_attention("
+                                    "enable_gqa=True)",
+                         "library_max_abs_err": lib_err,
+                         "bound_ms": max(ops_ms, bytes_ms),
+                         "bound_by": "operations" if ops_ms >= bytes_ms
+                         else "bytes",
+                         "achieved_tflops": flops / ms / 1e9}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -1885,14 +2458,18 @@ def main() -> int:
     random_rows = check_random_programs(scan, device)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store:
-        serve_line, mb, launches = phase_serve(port, store_mod, scan, store)
+        serve_line, mb, launches, slow = phase_serve(port, store_mod, scan,
+                                                     store)
     k1 = kernel_k1(scan, mb, launches, random_rows)
-    del mb
     torch.cuda.empty_cache()
-    search_line = phase_search(port, scan)
+    search_mb, search_line = phase_search(port, scan)
     k1["search_launches"] = search_line["kernel_launches"]
     torch.cuda.empty_cache()
-    degraded_line = phase_degraded(port)
+    degraded, degraded_line = phase_degraded(port)
+    log("analyze: the verifier over the serve, search and degraded objects")
+    analyze_line = phase_analyze(port, (mb, *slow), search_mb, degraded)
+    del mb, slow, search_mb
+    torch.cuda.empty_cache()
     log("profile: measured provider on the card")
     profile_line = phase_profile(port)
 
@@ -1901,6 +2478,17 @@ def main() -> int:
                    model_launches["flash_attention_tc"])
     k3 = kernel_k3(rn, captured, model_launches["rmsnorm"])
     del captured
+    torch.cuda.empty_cache()
+
+    families_line, t5_attention = phase_families(fa, rn, scan)
+    log("kernels: K2 on cross-attention (Sq != Sk)")
+    k2["cross"] = k2_cross(fa, t5_attention)
+    k2["families"] = {
+        row["arch"]: {"k2": row["prefill"]["k2_launches"],
+                      "k2_tc": row["prefill"]["k2_tc_launches"],
+                      "checks": row["prefill"]["k2_checks"]}
+        for row in families_line["configs"]}
+    del t5_attention
     torch.cuda.empty_cache()
 
     train_line = phase_train((scan, fa, rn))
@@ -1913,6 +2501,8 @@ def main() -> int:
     emit(serve_line)
     emit(search_line)
     emit(degraded_line)
+    emit(analyze_line)
+    emit(families_line)
     emit(train_line)
     emit(loop_line)
     check_line["total_seconds"] = time.perf_counter() - t_start

@@ -201,7 +201,8 @@ class EventFlowEngine:
 
     def __init__(self, stages: Sequence[Stage], strat: Strategy,
                  provider: Provider, build: Optional[EngineBuild] = None,
-                 scenario: Optional[Scenario] = None):
+                 scenario: Optional[Scenario] = None,
+                 verify: Optional[bool] = None):
         self.strat = strat
         self.provider = provider
         if scenario is None:
@@ -290,6 +291,17 @@ class EventFlowEngine:
         # the cap keeps long-lived cached engines from pinning one
         # TimelineBatch per seed set ever requested
         self._batch_memo: dict = {}
+
+        # construction-time static verification (repro_torch.analyze):
+        # verify=None defers to the REPRO_VERIFY env var — on in
+        # tests/CI, off on hot paths so predict/search throughput pays
+        # nothing. Lazy import: the analyze package is only loaded
+        # when verification is actually requested.
+        from repro_torch.analyze.findings import default_verify
+        if default_verify(verify):
+            from repro_torch.analyze.findings import raise_on_findings
+            from repro_torch.analyze.graph import verify_engine
+            raise_on_findings(verify_engine(self))
 
     _BATCH_MEMO_MAX = 8
 

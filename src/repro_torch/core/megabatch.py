@@ -104,7 +104,7 @@ class MegaBatch:
     """
 
     def __init__(self, engines: Sequence[EventFlowEngine], perturb=None,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, verify=None):
         engines = list(engines)
         self.engines = engines
         self.device = resolve_device(device)
@@ -165,6 +165,15 @@ class MegaBatch:
         base = 1
         for k, eng in enumerate(engines):
             base = self._compile_one(k, eng, base, trash)
+
+        # construction-time static verification of the compiled array
+        # program (repro_torch.analyze): verify=None defers to
+        # REPRO_VERIFY — on in tests/CI, off on the search hot path.
+        from repro_torch.analyze.findings import default_verify
+        if default_verify(verify):
+            from repro_torch.analyze.findings import raise_on_findings
+            from repro_torch.analyze.graph import verify_megabatch
+            raise_on_findings(verify_megabatch(self))
 
     # ------------------------------------------------------------------
 

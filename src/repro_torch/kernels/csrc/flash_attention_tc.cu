@@ -1,14 +1,15 @@
 // Forward flash attention on Hopper's tensor cores (sm_90a): bf16 q, k, v
 // on the model's (B, S, H, hd) layout with grouped-query KV heads, causal
-// and sliding-window masks, hd in {32, 64, 80, 96, 128}.
+// and sliding-window masks, hd in {32, 64, 80, 96, 128}; non-causal
+// calls (bidirectional and cross-attention) may have Sk != Sq.
 //
 // Replaces the TPU kernel `flash_attention_bh` / `_flash_kernel` of the
 // reference package (src/repro/kernels/flash_attention.py:74), reached
 // from the model through `ops.flash_attention`. For each query row q and
-// key k (positions are the row indices, 0..S-1):
+// key k (positions are the row indices, 0..Sq-1 and 0..Sk-1):
 //
 //     s      = (q . k) * hd^-0.5                     in fp32
-//     valid  = k < S  &  (!causal | k <= q)  &  (window | q - k < window)
+//     valid  = k < Sk &  (!causal | k <= q)  &  (window | q - k < window)
 //     out[q] = sum_k softmax_k(s)[k] * v[k] / max(l, 1e-30)
 //
 // with the running (m, l, acc) online softmax, rounded to bf16 at the end.
@@ -30,11 +31,14 @@
 //   producer (24) to the consumers (240) with setmaxnreg.
 // * Copies: TMA through 4-D tensor maps (hd, S, heads, B) built on the
 //   caller's strides, so the KV head h / n_rep is a coordinate (no repeat,
-//   no copy) and a ragged S tail arrives as zeros (then masked by
-//   position). Q is loaded once; K and V go through a 2-stage ring in
-//   shared memory, with a full barrier each for K and V (S = Q K^T starts
-//   before V lands) and one empty barrier that all 256 consumer threads
-//   arrive on.
+//   no copy) and a ragged Sq or Sk tail arrives as zeros. A zero key
+//   still scores 0 and would take softmax mass, so keys k >= Sk are
+//   masked to -inf by position in the last tile; the Q and K/V maps have
+//   Sq and Sk rows. The wrapper refuses causal or windowed calls with
+//   Sq != Sk, so the band's bounds below read one length. Q is loaded
+//   once; K and V go through a 2-stage ring in shared memory, with a full
+//   barrier each for K and V (S = Q K^T starts before V lands) and one
+//   empty barrier that all 256 consumer threads arrive on.
 // * hd = 80 is not a multiple of the 64-element atom of the 128-byte
 //   swizzle. The tiles use the 32-byte swizzle instead: 16-element atoms,
 //   hd = 5 x 16 with no padding, one TMA box of 16 columns each. Padding
@@ -47,7 +51,7 @@
 //   shuffles, hd^-0.5 * log2(e) folded into one scale and exp2 (ex2.approx,
 //   2 ulp); a row with no valid key yet uses 0 as its max (the -inf guard),
 //   so such a tile adds exactly nothing. Only tiles that cross the
-//   diagonal, the window's edge or the end of S are masked.
+//   diagonal, the window's edge or the end of Sk are masked.
 // * O += P V: wgmma m64nHDk16 with A = P from registers (the S accumulator
 //   of a 16-key slice is already in the A-fragment layout) and B = the V
 //   tile read MN-major. The reference computes P.V in fp32 (its body
@@ -59,7 +63,7 @@
 //   so each product is exact, and what remains is about 2^-17 relative,
 //   below fp32 summation noise. Q K^T needs no split: bf16 x bf16 products
 //   are exact in fp32.
-// * Epilogue: O / max(l, 1e-30) to bf16, rows past S not stored.
+// * Epilogue: O / max(l, 1e-30) to bf16, rows past Sq not stored.
 //
 // Plain C interface (no PyTorch headers): the Python wrapper passes raw
 // device pointers, element strides and the current stream, and checks
@@ -90,7 +94,7 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 struct Params {
   void* o;
   long long o_sb, o_ss, o_sh;  // element strides of the output
-  int H, n_rep, S, causal, window;  // window <= 0: none
+  int H, n_rep, Sq, Sk, causal, window;  // window <= 0: none
   float scale_log2;                 // hd^-0.5 * log2(e)
 };
 
@@ -135,16 +139,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto full_v = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
   auto empty = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
 
-  const int n_qt = (p.S + BM - 1) / BM;
+  const int n_qt = (p.Sq + BM - 1) / BM;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x);  // long first
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H, kh = h / p.n_rep;
   const int q0 = qt * BM;
 
   // the kv tiles any row of this block can see
-  const int q_last = min(q0 + BM, p.S) - 1;
+  const int q_last = min(q0 + BM, p.Sq) - 1;
   const int kv_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int kv_hi = p.causal ? q_last + 1 : p.S;
+  const int kv_hi = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
   const int t_lo = kv_lo / BN;
   const int t_hi = (kv_hi + BN - 1) / BN;
 
@@ -226,8 +230,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       keep(sc);
 
       // scale into log2 units; mask only tiles that cross the diagonal,
-      // the window's edge or the end of S (uniform over the warpgroup)
-      const bool masked = k0 + BN > p.S || (p.causal && k0 + BN - 1 > r0) ||
+      // the window's edge or the end of Sk (uniform over the warpgroup)
+      const bool masked = k0 + BN > p.Sk || (p.causal && k0 + BN - 1 > r0) ||
                           (p.window > 0 && r0 + 63 - k0 >= p.window);
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) {
@@ -235,7 +239,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (masked) {
           const int qpos = row + 8 * ((e >> 1) & 1);
           const int kpos = k0 + 8 * (e >> 2) + col + (e & 1);
-          const bool ok = kpos < p.S && (!p.causal || kpos <= qpos) &&
+          const bool ok = kpos < p.Sk && (!p.causal || kpos <= qpos) &&
                           (p.window <= 0 || qpos - kpos < p.window);
           x = ok ? x : -INFINITY;
         }
@@ -317,7 +321,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const float den = fmaxf(sum, 1e-30f);
       const int qpos = row + 8 * r;
-      if (qpos >= p.S) continue;
+      if (qpos >= p.Sq) continue;
       __nv_bfloat16* orow = og + qpos * p.o_ss;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
@@ -384,7 +388,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
       flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + BM - 1) / BM, BH);
+  const dim3 grid((p.Sq + BM - 1) / BM, BH);
   flash_tc_kernel<HD><<<grid, THREADS, bytes, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
@@ -402,33 +406,35 @@ int smem_bytes(int hd) {
 
 }  // namespace
 
-// Launches forward attention on `stream`. q: (B, S, H, hd); k, v:
-// (B, S, H / n_rep, hd); o: (B, S, H, hd); all bf16 with unit head_dim
+// Launches forward attention on `stream`. q: (B, Sq, H, hd); k, v:
+// (B, Sk, H / n_rep, hd); o: (B, Sq, H, hd); all bf16 with unit head_dim
 // stride, hd in {32, 64, 80, 96, 128}, q, k and v 16-byte aligned with
 // (batch, seq, head) strides in multiples of 8 elements. `strides` holds
 // 12 element strides: (batch, seq, head) of q, k, v and o in that order.
-// window <= 0 means no window; `scale` is hd^-0.5. Returns the launch's
+// window <= 0 means no window; `scale` is hd^-0.5. Causal or windowed
+// calls need Sk == Sq (the wrapper checks). Returns the launch's
 // cudaError_t (0 on success); a tensor map cuTensorMapEncodeTiled refuses
 // returns cudaErrorInvalidValue. Does not synchronise and allocates
 // nothing.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* o,
                                          const long long* strides, int B,
-                                         int H, int n_rep, int S, int hd,
-                                         int causal, int window, float scale,
+                                         int H, int n_rep, int Sq, int Sk,
+                                         int hd, int causal, int window,
+                                         float scale,
                                          void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
-  if (n_rep <= 0 || H % n_rep != 0 || smem_bytes(hd) == 0)
+  if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaSuccess);
+  if (Sk <= 0 || n_rep <= 0 || H % n_rep != 0 || smem_bytes(hd) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const int KH = H / n_rep;
   CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, q, hd, S, H, B, strides[1], strides[2], strides[0],
+  if (!make_map(enc, &tq, q, hd, Sq, H, B, strides[1], strides[2], strides[0],
                 BM) ||
-      !make_map(enc, &tk, k, hd, S, KH, B, strides[4], strides[5],
+      !make_map(enc, &tk, k, hd, Sk, KH, B, strides[4], strides[5],
                 strides[3], BN) ||
-      !make_map(enc, &tv, v, hd, S, KH, B, strides[7], strides[8],
+      !make_map(enc, &tv, v, hd, Sk, KH, B, strides[7], strides[8],
                 strides[6], BN))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -438,7 +444,8 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   p.o_sh = strides[11];
   p.H = H;
   p.n_rep = n_rep;
-  p.S = S;
+  p.Sq = Sq;
+  p.Sk = Sk;
   p.causal = causal;
   p.window = window;
   p.scale_log2 = scale * 1.4426950408889634f;

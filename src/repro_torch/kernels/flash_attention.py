@@ -4,10 +4,11 @@ What the reference package's TPU kernel
 ``kernels/flash_attention.py::flash_attention_bh`` computes, on the
 model's ``(B, S, H, hd)`` layout with grouped-query KV heads (query head
 ``h`` reads KV head ``h // n_rep``). Positions are the row indices
-``0..S-1``: scores ``q·kᵀ·hd^-0.5`` in fp32, masked by kv padding,
-``causal`` (``q_pos >= k_pos``) and ``window`` (``q_pos - k_pos <
-window``), online softmax, output ``acc / max(l, 1e-30)`` in the input
-dtype.
+``0..Sq-1`` and ``0..Sk-1`` (Sk may differ from Sq only in a
+non-causal, unwindowed call: cross-attention): scores ``q·kᵀ·hd^-0.5``
+in fp32, masked by kv padding, ``causal`` (``q_pos >= k_pos``) and
+``window`` (``q_pos - k_pos < window``), online softmax, output
+``acc / max(l, 1e-30)`` in the input dtype.
 
 * :func:`flash_attention_cuda` — the hand-written Hopper kernels, one
   block per (batch·head, q tile) with the kv loop inside, band-outside kv
@@ -61,7 +62,7 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 TC_HEAD_DIMS = (32, 64, 80, 96, 128)
 
 
-def _check_shapes(q, k, v, window) -> int:
+def _check_shapes(q, k, v, causal, window) -> int:
     """Raise on what no implementation takes; returns n_rep."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be (B, S, H, hd); got "
@@ -78,10 +79,11 @@ def _check_shapes(q, k, v, window) -> int:
                          f"heads")
     if k.shape[1] < 1:
         raise ValueError("k and v hold no position")
-    if k.shape[1] != q.shape[1]:
-        # positions are the row indices 0..S-1 of one sequence; with
-        # Sq != Sk a row may see no key, where the kernel writes 0 and
-        # the plain version a mean over masked keys
+    if k.shape[1] != q.shape[1] and (causal or window is not None):
+        # positions are the row indices 0..Sq-1 and 0..Sk-1; a causal or
+        # windowed row may then see no key, where the kernel writes 0 and
+        # the plain version a mean over masked keys. Non-causal rows see
+        # all Sk keys (cross-attention), as in the reference.
         raise ValueError(f"q and k/v must share one sequence length; got "
                          f"Sq = {q.shape[1]}, Sk = {k.shape[1]}")
     if window is not None and window < 1:
@@ -140,7 +142,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     """Plain version on the model's layout: q (B,Sq,H,hd), k/v
     (B,Sk,KH,hd) → (B,Sq,H,hd). KV heads are repeated and the heads
     moved next to the batch, as the reference's ``ops`` wrapper does."""
-    n_rep = _check_shapes(q, k, v, window)
+    n_rep = _check_shapes(q, k, v, causal, window)
     b, sq, h, hd = q.shape
     if n_rep > 1:
         k = k.repeat_interleave(n_rep, dim=2)
@@ -205,7 +207,7 @@ def _library():
         scalar.flash_attention_error_string.argtypes = [i]
         scalar.flash_attention_error_string.restype = ctypes.c_char_p
         tc.flash_attention_tc_launch.argtypes = [
-            p, p, p, p, strides, i, i, i, i, i, i, i, f, p]
+            p, p, p, p, strides, i, i, i, i, i, i, i, i, f, p]
         tc.flash_attention_tc_launch.restype = i
         tc.flash_attention_tc_smem_bytes.argtypes = [i]
         tc.flash_attention_tc_smem_bytes.restype = i
@@ -222,7 +224,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     current stream and checks the launch. It does not synchronise."""
     global LAUNCHES, TC_LAUNCHES
     refuse_autograd("flash_attention_cuda", q, k, v)
-    n_rep = _check_shapes(q, k, v, window)
+    n_rep = _check_shapes(q, k, v, causal, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attention_cuda needs q, k, v on one "
@@ -251,16 +253,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     tc = uses_tensor_cores(q, k, v)
     lib = _library()["tc" if tc else "scalar"]
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides, b, h, n_rep, sq)
+            strides, b, h, n_rep, sq, sk, hd)
     masks = (int(causal), window if window is not None else 0,
              float(hd ** -0.5))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if tc:
-            err = lib.flash_attention_tc_launch(*args, hd, *masks, stream)
+            err = lib.flash_attention_tc_launch(*args, *masks, stream)
             error_string = lib.flash_attention_tc_error_string
         else:
-            err = lib.flash_attention_launch(*args, sk, hd, *masks,
+            err = lib.flash_attention_launch(*args, *masks,
                                              _CODES[q.dtype], stream)
             error_string = lib.flash_attention_error_string
     if err != 0:

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.layers import DEFAULT_OPTIONS, ModelOptions
 
 # VLM stub: number of precomputed patch-embedding positions
@@ -45,9 +45,24 @@ class ModelAPI:
 
 def build_model(cfg: ArchConfig,
                 opts: ModelOptions = DEFAULT_OPTIONS) -> ModelAPI:
-    """The LM of ``cfg``; raises ``NotImplementedError`` for the families
-    not ported yet (encoder-decoder, moe, ssm, hybrid)."""
-    lm.check_family(cfg)
+    """The model of ``cfg``: :mod:`~repro_torch.models.encdec` for an
+    encoder-decoder, :mod:`~repro_torch.models.lm` for every other
+    family."""
+    if cfg.enc_dec:
+        def init_cache(batch: int, max_seq: int, device=DEFAULT_DEVICE):
+            return encdec.init_cache(cfg, batch, max_seq,
+                                     enc_frames=max(max_seq // 2, 8),
+                                     opts=opts, device=device)
+        return ModelAPI(
+            cfg=cfg, opts=opts,
+            init=lambda generator, device=DEFAULT_DEVICE:
+                encdec.init_params(cfg, generator, device, opts),
+            forward=lambda p, b: encdec.forward(cfg, p, b, opts),
+            loss=lambda p, b: encdec.loss_fn(cfg, p, b, opts),
+            init_cache=init_cache,
+            decode_step=lambda p, c, b: encdec.decode_step(cfg, p, c, b,
+                                                           opts),
+        )
     return ModelAPI(
         cfg=cfg, opts=opts,
         init=lambda generator, device=DEFAULT_DEVICE: lm.init_params(
@@ -68,10 +83,20 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
                 opts: ModelOptions = DEFAULT_OPTIONS) -> Dict[str, Any]:
     """TensorSpecs for the *batch* argument of train/prefill steps, or
     the (cache, batch) pair for decode steps."""
-    lm.check_family(cfg)
     b, s = shape.global_batch, shape.seq_len
     if shape.kind in ("train", "prefill"):
         train = shape.kind == "train"
+        if cfg.enc_dec:
+            half = s // 2
+            batch = {"tokens": TensorSpec((b, half), torch.int32)}
+            if train:
+                batch["labels"] = TensorSpec((b, half), torch.int32)
+            if cfg.audio_stub:
+                batch["frame_embeds"] = TensorSpec((b, half, cfg.d_model),
+                                                   opts.dtype)
+            else:
+                batch["tokens_enc"] = TensorSpec((b, half), torch.int32)
+            return batch
         if cfg.vision_stub:
             n_patches = min(N_PATCHES, s // 2)
             n_txt = s - n_patches
@@ -87,7 +112,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
         return batch
 
     # decode: cache specs + one-token batch
-    cache = _specs_of(lm.init_cache(cfg, b, s, opts, device="meta"))
+    cache = _specs_of(build_model(cfg, opts).init_cache(b, s,
+                                                        device="meta"))
     return {"cache": cache,
             "batch": {"tokens": TensorSpec((b, 1), torch.int32)}}
 
@@ -95,6 +121,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
 def _specs_of(tree):
     if isinstance(tree, dict):
         return {k: _specs_of(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):             # an SSMCache
+        return type(tree)(*(_specs_of(v) for v in tree))
     return TensorSpec(tuple(tree.shape), tree.dtype)
 
 
@@ -124,6 +152,8 @@ def make_batch(cfg: ArchConfig, shape: ShapeConfig,
     def realize(spec):
         if isinstance(spec, dict):
             return {k: realize(v) for k, v in spec.items()}
+        if not isinstance(spec, TensorSpec):     # an SSMCache of specs
+            return type(spec)(*(realize(v) for v in spec))
         if spec.dtype.is_floating_point:
             return torch.randn(spec.shape, generator=generator,
                                device=dev).to(spec.dtype)

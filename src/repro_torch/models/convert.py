@@ -6,9 +6,10 @@ per-layer weights stacked over a leading layer axis, the FFN under
 ``ffn``, an optional ``head`` and optional ``bq/bk/bv``. The port's
 models use the same names and layouts (:mod:`repro_torch.models.lm`),
 so the conversion is value for value: no transpose, and no cast unless
-``dtype`` asks for one. It takes the tree as nested dicts of numpy
-arrays (``np.asarray`` of each leaf), so this module needs nothing of
-the reference.
+``dtype`` asks for one. A decode cache converts the same way, its
+``SSMCache`` named tuples (``conv``, ``state``) into the port's. It
+takes the tree as nested dicts of numpy arrays (``np.asarray`` of each
+leaf), so this module needs nothing of the reference.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models.ssm import SSMCache
 from repro_torch.train.optimizer import AdamWState
 
 
@@ -49,6 +51,9 @@ def params_from_reference(tree: Mapping[str, Any], device=DEFAULT_DEVICE,
     def convert(node):
         if isinstance(node, Mapping):
             return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, tuple) and getattr(node, "_fields", None) \
+                == SSMCache._fields:
+            return SSMCache(*(convert(v) for v in node))
         t = _tensor(node)
         return t.to(device=dev, dtype=dtype, copy=True)
 

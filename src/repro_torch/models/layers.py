@@ -45,6 +45,7 @@ class ModelOptions:
     block_q: int = 512
     block_kv: int = 1024
     remat: bool = True               # activation checkpointing per layer
+    moe_impl: str = "gather"         # gather | dense_dispatch
     # sequence threshold above which "auto" switches naive → flash_torch
     flash_threshold: int = 2048
 

@@ -6,7 +6,8 @@ dtype (no master copy).
 State layout mirrors the parameter tree (two moment trees + step). The
 update is functional: it returns new parameters and a new state and
 changes neither argument. The ZeRO-1 ``state_specs`` waits for sharding
-(ROADMAP.md, Queue 1 item 9).
+(ROADMAP.md, Queue 1,
+parallel/sharding).
 """
 from __future__ import annotations
 

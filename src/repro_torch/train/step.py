@@ -6,7 +6,7 @@ call.
 update. ``make_prefill_step`` returns the full forward to logits and
 ``make_serve_step`` the one-token decode step. The reference's
 ``grad_specs`` (gradient sharding) waits for sharding (ROADMAP.md,
-Queue 1 item 9).
+Queue 1, parallel/sharding).
 """
 from __future__ import annotations
 

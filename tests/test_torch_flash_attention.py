@@ -131,6 +131,44 @@ def test_query_and_key_lengths_must_match(fn):
         fn(q, k[:, :16], v[:, :16], window=8)
 
 
+def qkv_cross(b, sq, sk, h, kh, hd, seed=0):
+    """Seeded q (B, Sq, H, hd) and k, v (B, Sk, KH, hd)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd), dtype=np.float32),
+            rng.standard_normal((b, sk, kh, hd), dtype=np.float32),
+            rng.standard_normal((b, sk, kh, hd), dtype=np.float32))
+
+
+@pytest.mark.parametrize("sq,sk", [(40, 72), (72, 40), (1000, 1500)])
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 2e-2)])
+def test_cross_attention_lengths_match_the_reference(sq, sk, dtype, atol):
+    """Non-causal attention with Sq != Sk (the enc-dec model's
+    cross-attention, GQA n_rep 2): every query row sees all Sk keys, as
+    the reference's kernel computes it (kv padded to the block and
+    masked with k_pos < seq_k)."""
+    arrays = qkv_cross(1, sq, sk, 4, 2, 64, seed=sq + sk)
+    jx = [jnp.asarray(a).astype(dtype) for a in arrays]
+    ro = ref_ops.flash_attention(*jx, causal=False, window=None)
+    tt = [torch.from_numpy(a).to(TORCH[dtype]) for a in arrays]
+    po = ops.flash_attention(*tt, causal=False, window=None)
+    assert po.dtype == TORCH[dtype] and po.shape == tt[0].shape
+    np.testing.assert_allclose(po.float().numpy(),
+                               np.asarray(ro.astype(jnp.float32)),
+                               atol=atol, rtol=atol)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 16),
+                                           (False, 16)])
+@pytest.mark.parametrize("fn", [fa.flash_attention, fa.flash_attention_cuda,
+                                fa.flash_attention_plain])
+def test_causal_or_windowed_lengths_must_match(fn, causal, window):
+    """Sq != Sk stays refused wherever a row could see no key."""
+    q, k, v = (torch.from_numpy(a) for a in qkv_cross(1, 40, 72, 4, 2, 32))
+    with pytest.raises(ValueError, match="sequence length"):
+        fn(q, k, v, causal=causal, window=window)
+
+
 #: the tensor-core kernel against the plain version: both compute in
 #: fp32 (P·V through the hi/lo split), so a bf16 output may differ by a
 #: rounding step — two bf16 ulps; ``chip_smoke.py``'s K2_BF16_TOL
@@ -246,7 +284,8 @@ def test_kernel_matches_plain_version_on_the_card():
     version on ragged, windowed, non-causal and GQA cases — fp32 (IEEE,
     TF32 off) through the scalar kernel at 2e-5, bf16 through the
     tensor-core kernel at two bf16 ulps, and bf16 at head_dim 40 through
-    the scalar kernel."""
+    the scalar kernel; then non-causal cross-attention (Sq != Sk) through
+    both kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -270,5 +309,20 @@ def test_kernel_matches_plain_version_on_the_card():
             assert fa.TC_LAUNCHES == tc_before + int(tc)
             want = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(), **tol)
+    # cross-attention: non-causal, Sq != Sk, neither a multiple of a tile
+    for sq, sk, hd in [(1000, 1500, 64), (1500, 1000, 128), (40, 72, 80)]:
+        arrays = qkv_cross(1, sq, sk, 8, 2, hd, seed=sq)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in arrays)
+            tc = dtype == torch.bfloat16
+            assert fa.uses_tensor_cores(q, k, v) is tc
+            tol = BF16_TWO_ULPS if tc else {"atol": 2e-5, "rtol": 2e-5}
+            tc_before = fa.TC_LAUNCHES
+            got = fa.flash_attention(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            assert fa.TC_LAUNCHES == tc_before + int(tc)
+            want = fa.flash_attention_plain(q, k, v, causal=False)
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.float().cpu().numpy(), **tol)

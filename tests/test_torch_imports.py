@@ -45,7 +45,10 @@ def test_there_is_something_to_check():
             "tree.py", "step.py", "perturb.py", "space.py", "cache.py",
             "engine.py", "report.py", "search.py", "metrics.py",
             "sweep.py", "executor.py", "degraded.py", "__main__.py",
-            "_polling_reference.py"} <= names
+            "_polling_reference.py", "findings.py", "graph.py", "lint.py",
+            "moe.py", "ssm.py", "encdec.py"} <= names
+    for pkg in ("analyze", "models"):
+        assert (PORT / pkg / "__init__.py").exists(), pkg
 
 
 @pytest.mark.parametrize(
@@ -89,6 +92,11 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "repro"))
 assert not bad, bad
 assert "triton" not in sys.modules
+for name in ("repro_torch.analyze", "repro_torch.analyze.__main__",
+             "repro_torch.analyze.graph", "repro_torch.analyze.lint",
+             "repro_torch.models.moe", "repro_torch.models.ssm",
+             "repro_torch.models.encdec"):
+    assert name in mods, name
 print(len(mods))
 """
 
@@ -102,4 +110,4 @@ def test_importing_every_module_pulls_in_neither():
                           capture_output=True, text=True, env=env,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 75
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 83
