@@ -41,6 +41,21 @@ kernels' launch counts set to 0 just before it and read just after:
   against K2's plain version on the tensor cores; in fp32 at 2 layers
   (jamba at its 8, t5_large whole; an MoE at the dropless capacity)
   the kernel path against the plain path and decode == forward;
+* the parallel layer, on a one-rank NCCL process group (a ``FileStore``
+  in a temporary directory, no TCP port) and ``make_debug_mesh(1, 1)``:
+  qwen3_moe_30b_a3b's bf16 prefill again on the families phase's
+  weights with ``moe_impl="ep_a2a"`` over the one-rank ``model`` axis
+  (K2 48 times on the tensor cores, 96 all-to-alls), and in fp32 at 2
+  layers the ``ep_a2a`` logits against the ``gather`` logits at 1e-5
+  (the config's capacity and the dropless one); ring attention at h2o's
+  layer shape, bit-identical to ``flash_torch``; a full-width
+  h2o_danube_1_8b train step with parameters and moments placed as
+  DTensors by ``param_specs``/``zero1_specs`` through
+  ``make_train_step(grad_specs=)``, against the plain step (loss rtol
+  1e-5, gradient norm 1e-4); ``compressed_psum`` and ``ErrorFeedback``
+  over that step's whole gradient tree, bit-identical to the int8
+  round trip; and the launcher ``python -m repro_torch.launch.train``
+  at full width in a child process;
 * the training path (the same model): ``fit`` (see below), which
   launches none of the kernels, as the reference's training path calls
   no Pallas kernel.
@@ -94,7 +109,8 @@ Around that it
 
 Every phase prints one JSON object on a line of its own (``env``,
 ``build``, then ``kernels``, ``profile``, ``model``, ``serve``,
-``search``, ``degraded``, ``analyze``, ``families``, ``train``,
+``search``, ``degraded``, ``analyze``, ``families``, ``parallel``,
+``train``,
 ``loop_check``, ``train_check``);
 then
 the card's name and power limit; the last line is ``{"ok": true,
@@ -1980,6 +1996,11 @@ class Family:
     layers: int = 0                 # a depth cut; 0: the config's own
     reduced: str = ""
     witness: object = None
+    # where given, ``parallel(fa, rn, scan, mesh, cfg, params, batch,
+    # logits, ms)``, run on the bf16 weights after the timed prefill
+    # (``logits`` its first output, ``ms`` its median): its dict goes to
+    # the ``parallel`` line
+    parallel: object = None
 
 
 @contextlib.contextmanager
@@ -2087,7 +2108,8 @@ def routing_witness(cfg, params, batch) -> dict:
 
 FAMILIES = (
     Family("moe", "qwen3_moe_30b_a3b", {"tokens": (1, 4096)},
-           k2=lambda cfg: cfg.n_layers, decode_steps=64),
+           k2=lambda cfg: cfg.n_layers, decode_steps=64,
+           parallel=lambda *a: ep_prefill(*a)),
     Family("ssm", "mamba2_2_7b", {"tokens": (2, 8192)},
            k2=lambda cfg: 0, decode_steps=64),
     # jamba's 32 layers (51.5 B parameters, 103 GB in bf16) do not fit
@@ -2277,13 +2299,14 @@ def widths(cfg) -> dict:
     return row
 
 
-def run_family(fa, rn, scan, spec: Family) -> tuple:
+def run_family(fa, rn, scan, spec: Family, mesh) -> tuple:
     """One config from a freed card: random bf16 weights; a prefill with
     the kernel counts reset just before and read just after, its layer-0
     attention of each kind held against K2's plain version; the prefill
-    timed and profiled; the witness, if any; a greedy decode timed and
-    profiled; then, with the bf16 weights freed, the fp32 checks.
-    Returns the row and the captured attention inputs."""
+    timed and profiled; the ``parallel`` hook and the witness, if any; a
+    greedy decode timed and profiled; then, with the bf16 weights freed,
+    the fp32 checks. Returns the row, the captured attention inputs and
+    the hook's dict (or None)."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
     from repro_torch.models import moe
@@ -2310,9 +2333,11 @@ def run_family(fa, rn, scan, spec: Family) -> tuple:
           f"the tensor cores and nothing else")
     check(bool(torch.isfinite(logits[:, -128:]).all()),
           "prefill logits not finite")
-    del logits
     k2_checks = check_captured_k2(fa, captured)
     _, ms, all_ms = timed_prefill(prefill, params, batch)
+    parallel = spec.parallel(fa, rn, scan, mesh, cfg, params, batch, logits,
+                             ms) if spec.parallel else None
+    del logits
     profile = device_breakdown(lambda: prefill(params, batch))
     witness = spec.witness(cfg, params, batch) if spec.witness else {}
     step = make_serve_step(cfg, opts)
@@ -2350,23 +2375,26 @@ def run_family(fa, rn, scan, spec: Family) -> tuple:
     if spec.reduced:
         row["reduced"] = spec.reduced
     row.update(fp32_checks(spec, cfg, batch))
-    return row, captured
+    return row, captured, parallel
 
 
-def phase_families(fa, rn, scan) -> tuple:
-    """The configs of FAMILIES, one at a time, each from a freed card."""
-    rows, seconds, captured = [], {}, {}
+def phase_families(fa, rn, scan, mesh) -> tuple:
+    """The configs of FAMILIES, one at a time, each from a freed card.
+    Returns the line, t5's captured attention and the MoE's ``parallel``
+    hook's dict."""
+    rows, seconds, captured, parallel = [], {}, {}, {}
     for spec in FAMILIES:
         free_card()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        row, captured[spec.name] = run_family(fa, rn, scan, spec)
+        row, captured[spec.name], parallel[spec.name] = run_family(
+            fa, rn, scan, spec, mesh)
         seconds[spec.name] = row["seconds"] = time.perf_counter() - t0
         rows.append(row)
         free_card()
     return {"phase": "families", "configs": rows,
             "weights": "random, torch.Generator seed 0 on the card",
-            "seconds": seconds}, captured["encdec"]
+            "seconds": seconds}, captured["encdec"], parallel["moe"]
 
 
 def k2_cross(fa, captured) -> dict:
@@ -2433,6 +2461,402 @@ def k2_cross(fa, captured) -> dict:
                          "achieved_tflops": flops / ms / 1e9}}
 
 
+# --------------------------------------------------------------------------
+# the parallel layer on one NCCL rank
+# --------------------------------------------------------------------------
+
+PARALLEL_STEPS = 3                    # the sharded and the plain train step
+# the ep_a2a prefill against the gather prefill in fp32:
+# tests/test_moe.py's own bar
+EP_TOL = {"atol": 1e-5, "rtol": 1e-5}
+# ring attention at h2o_danube_1_8b's layer shape (b, s, h, kh, hd)
+RING_SHAPE = (PREFILL_BATCH, PREFILL_SEQ, 32, 8, 80)
+LAUNCHER_STEPS = 3
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank NCCL process group on the card, met through a
+    ``FileStore`` in a temporary directory (no TCP port), and
+    ``make_debug_mesh(1, 1)`` over it; the group is destroyed on
+    leaving."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            yield make_debug_mesh(1, 1)
+        finally:
+            dist.destroy_process_group()
+
+
+def ep_options(dtype, attn_impl):
+    from repro_torch.models import layers as L
+    return L.ModelOptions(dtype=dtype, attn_impl=attn_impl,
+                          moe_impl="ep_a2a", ep_axis="model",
+                          dp_axes=("data",))
+
+
+def ep_prefill(fa, rn, scan, mesh, cfg, params, batch, gather_logits,
+               gather_ms) -> dict:
+    """The families phase's bf16 prefill of the MoE again, on its weights,
+    with the MoE through ``ep_a2a`` over the one-rank ``model`` axis: K2
+    once a layer on the tensor cores and two all-to-alls a layer (counts
+    reset just before, read just after), finite logits, timed beside the
+    ``gather`` prefill."""
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.train.step import make_prefill_step
+    log(f"parallel: {cfg.name} prefill through ep_a2a on one NCCL rank")
+    prefill = make_prefill_step(cfg, ep_options(torch.bfloat16, "cuda"))
+    reset_launches((fa, rn, scan))
+    moe.A2A_CALLS = 0
+    with use_mesh(mesh):
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+    launches, a2a = counts(fa, rn, scan), moe.A2A_CALLS
+    k2 = cfg.n_layers
+    check(launches == {"k1": 0, "k2": k2, "k2_tc": k2, "k3": 0},
+          f"ep_a2a prefill launched {launches}, expected K2 {k2} times on "
+          f"the tensor cores and nothing else")
+    check(a2a == 2 * cfg.n_layers,
+          f"ep_a2a prefill made {a2a} all-to-alls, expected two a layer")
+    check(bool(torch.isfinite(logits).all()), "ep_a2a logits not finite")
+    diff = max_abs_diff(logits.float(), gather_logits.float())
+    same = torch.equal(logits, gather_logits)
+    del logits
+    with use_mesh(mesh):
+        _, ms, all_ms = timed_prefill(prefill, params, batch)
+        profile = device_breakdown(lambda: prefill(params, batch))
+    n_tokens = batch["tokens"].numel()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16",
+            "shapes": {k: list(t.shape) for k, t in batch.items()},
+            "capacity": moe.capacity(n_tokens, cfg.moe),
+            "k2_launches": launches["k2"], "k2_tc_launches": launches["k2_tc"],
+            "launches": launches, "all_to_all_calls": a2a,
+            "ms_median": ms, "ms": all_ms,
+            "tokens_per_s": n_tokens / ms * 1e3,
+            "gather_ms_median": gather_ms,
+            "gather_tokens_per_s": n_tokens / gather_ms * 1e3,
+            "bf16_max_abs_diff_vs_gather": diff,
+            "bf16_identical_to_gather": same, "profile": profile}
+
+
+def ep_fp32_check(mesh) -> dict:
+    """fp32, the MoE cut to 2 layers: the ``ep_a2a`` prefill against the
+    ``gather`` prefill at tests/test_moe.py's 1e-5, at the config's
+    capacity and at the dropless one."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.train.step import make_prefill_step
+    spec = FAMILIES[0]
+    cfg = dataclasses.replace(port_config(spec.arch),
+                              n_layers=FAMILY_CHECK_LAYERS)
+    params, _ = family_params(cfg, torch.float32)
+    batch = seeded_batch(cfg, spec.shapes, 1)
+    log(f"parallel: {spec.arch} fp32, {cfg.n_layers} layers: ep_a2a vs "
+        f"gather")
+    rows = {}
+    for name, c in (("config_capacity", cfg),
+                    ("dropless_capacity", dropless(cfg))):
+        want = make_prefill_step(c, L.ModelOptions(
+            dtype=torch.float32, attn_impl="flash_torch"))(params, batch)
+        with use_mesh(mesh):
+            got = make_prefill_step(c, ep_options(
+                torch.float32, "flash_torch"))(params, batch)
+        e = max_abs_diff(got, want)
+        check(torch.allclose(got, want, **EP_TOL),
+              f"fp32 ep_a2a != gather at the {name} ({e})")
+        rows[name] = {"capacity": moe.capacity(batch["tokens"].numel(),
+                                               c.moe),
+                      "max_abs_diff": e,
+                      "max_abs_logit": float(want.abs().max()),
+                      "identical": torch.equal(got, want)}
+        del got, want
+    del params
+    free_card()
+    return {"layers": cfg.n_layers, "dtype": "float32",
+            "attn_impl": "flash_torch", "tolerance": "atol = rtol = 1e-5",
+            **rows}
+
+
+def self_transfer(mesh) -> str:
+    """Whether ``batch_isend_irecv`` from this rank to itself round-trips
+    on the mesh's NCCL group (gloo refuses it; the one-rank ring sends
+    nothing either way): "allowed", or the error, ungated."""
+    import torch.distributed as dist
+    group = mesh.get_group("model")
+    x = torch.arange(8.0, device="cuda")
+    y = torch.empty_like(x)
+    me = dist.get_rank()
+    try:
+        for r in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, me, group),
+                dist.P2POp(dist.irecv, y, me, group)]):
+            r.wait()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return f"refused: {e}"[:300]
+    check(torch.equal(x, y), "a transfer to this rank came back changed")
+    return "allowed"
+
+
+def ring_check(mesh) -> dict:
+    """Ring attention over the one-rank ``model`` axis at h2o's layer
+    shape against ``attention_flash_torch`` on the same inputs: one
+    partial, combined at weight exp(0) = 1, must give the same bits."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import use_mesh
+    b, s, h, kh, hd = RING_SHAPE
+    window = port_config(MODEL_ARCH).sliding_window
+    q, k, v = seeded_qkv(RING_SHAPE, torch.bfloat16, seed=11)
+    pos = torch.arange(s, device="cuda").expand(b, s)
+    log(f"parallel: ring attention on one rank, q {(b, s, h, hd)}")
+    with torch.no_grad(), use_mesh(mesh):
+        def ring():
+            return L.ring_attention(q, k, v, pos, pos, "model", True, window)
+
+        def plain():
+            return L.attention_flash_torch(q, k, v, pos, pos, True, window)
+
+        got, want = ring(), plain()
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        check(same, f"ring attention != flash_torch on one rank "
+                    f"(max abs diff {max_abs_diff(got.float(), want.float())})")
+        ring_ms = sorted(event_ms(ring)[1] for _ in range(3))
+        plain_ms = sorted(event_ms(plain)[1] for _ in range(3))
+    return {"q": [b, s, h, hd], "k": [b, s, kh, hd], "dtype": "bfloat16",
+            "causal": True, "window": window, "axis": "model", "ranks": 1,
+            "bit_identical": same, "ms_median": ring_ms[1], "ms": ring_ms,
+            "flash_torch_ms_median": plain_ms[1], "flash_torch_ms": plain_ms,
+            "transfers": 0, "nccl_send_to_self": self_transfer(mesh)}
+
+
+def run_steps(step, params, make_state, batch) -> tuple:
+    """PARALLEL_STEPS chained steps from ``params`` and ``make_state()``
+    (made here, so no caller holds the first state); each step's loss,
+    gradient norm and host seconds, and the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    p, st = params, make_state()
+    losses, norms, secs = [], [], []
+    for _ in range(PARALLEL_STEPS):
+        t0 = time.perf_counter()
+        p, st, m = step(p, st, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        secs.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"losses {losses} or grad norms {norms} not finite")
+    return {"losses": losses, "grad_norms": norms, "step_seconds": secs,
+            "seconds_median": float(np.median(secs)),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}, p
+
+
+def sharded_step(mesh) -> tuple:
+    """Full-width h2o_danube_1_8b, B=2 x S=4096 bf16, no remat, ``auto``
+    attention: PARALLEL_STEPS plain steps, then, the plain copy freed,
+    the same parameters placed as DTensors on the (1, 1) mesh
+    (``param_specs(fsdp_axes="data")``, moments by ``zero1_specs``)
+    through ``make_train_step(grad_specs=)``, attention through its local
+    map. Returns the row and the placed step's gradient tree (the first
+    step's), local views."""
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step, value_and_grad
+    from repro_torch.train.tree import leaves, map_leaves
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    cfg = port_config(MODEL_ARCH)
+    opts = L.ModelOptions(dtype=torch.bfloat16, remat=False,
+                          attn_impl="auto")
+    dev = torch.device("cuda")
+    api = build_model(cfg, opts)
+    params = api.init(torch.Generator(dev).manual_seed(0), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        DataConfig(seed=0, vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH), 0).items()}
+    log(f"parallel: {PARALLEL_STEPS} plain steps of {MODEL_ARCH}")
+    plain, last = run_steps(make_train_step(cfg, opts), params,
+                            lambda: opt.init(params), batch)
+    del last
+    free_card()
+    log(f"parallel: {PARALLEL_STEPS} steps on DTensors over the (1, 1) "
+        f"mesh")
+    pspecs = sh.param_specs(params, mesh, fsdp_axes="data")
+    dparams = sh.distribute_tree(params, pspecs, mesh)
+    del params
+    free_card()
+    shapes = map_leaves(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), dparams)
+    ospecs = sh.zero1_specs(opt.init(shapes), opt.state_specs(pspecs), mesh)
+    step = make_train_step(cfg, opts, grad_specs=pspecs)
+    with sh.use_mesh(mesh):
+        sharded, last = run_steps(
+            step, dparams,
+            lambda: sh.distribute_tree(opt.init(dparams), ospecs, mesh),
+            batch)
+    placed = all(sh.is_dtensor(t) for t in leaves(last))
+    check(placed, "the sharded step returned plain parameters")
+    del last
+    free_card()
+    loss_rel = abs(sharded["losses"][0] - plain["losses"][0]) \
+        / abs(plain["losses"][0])
+    gnorm_rel = abs(sharded["grad_norms"][0] - plain["grad_norms"][0]) \
+        / plain["grad_norms"][0]
+    check(loss_rel <= CHECK_LOSS_RTOL,
+          f"sharded first loss {sharded['losses'][0]}, plain "
+          f"{plain['losses'][0]}")
+    check(gnorm_rel <= CHECK_GNORM_RTOL,
+          f"sharded first grad norm {sharded['grad_norms'][0]}, plain "
+          f"{plain['grad_norms'][0]}")
+    with sh.use_mesh(mesh), implicit_replication():
+        _, grads = value_and_grad(api.loss, dparams, batch)
+    grads = map_leaves(sh.local, grads)
+    del dparams
+    free_card()
+    spec_set = sorted({str(p) for p in sh.spec_leaves(pspecs)})
+    return {"arch": MODEL_ARCH, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "dtype": "bfloat16", "remat": False,
+            "attn_impl": "auto", "steps": PARALLEL_STEPS,
+            "param_specs": "param_specs(fsdp_axes='data'); moments "
+                           "zero1_specs(state_specs(...))",
+            "distinct_param_specs": spec_set,
+            "plain": plain, "sharded": sharded,
+            "first_loss_rel": loss_rel, "first_grad_norm_rel": gnorm_rel,
+            "first_loss_identical":
+                sharded["losses"][0] == plain["losses"][0],
+            "first_grad_norm_identical":
+                sharded["grad_norms"][0] == plain["grad_norms"][0],
+            "bars": {"loss_rtol": CHECK_LOSS_RTOL,
+                     "grad_norm_rtol": CHECK_GNORM_RTOL},
+            "dtensor_seconds_ratio":
+                sharded["seconds_median"] / plain["seconds_median"],
+            "returned_dtensors": placed}, grads
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def compression_check(mesh, grads) -> dict:
+    """``compressed_psum`` over the one-rank ``data`` group on the whole
+    gradient tree, then ``ErrorFeedback.apply`` from a zero residual:
+    with one rank the sum is the code and the max the scale, so each leaf
+    must be ``dequantize_int8(*quantize_int8(g))``'s bits."""
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.train import compression as C
+    from repro_torch.train.tree import leaves
+    n = sum(g.numel() for g in leaves(grads))
+    log(f"parallel: compressed_psum over {n} gradient elements")
+    with use_mesh(mesh):
+        C.compressed_psum({"w": leaves(grads)[0]}, "data")      # warm
+        torch.cuda.synchronize()
+        out, psum_ms = event_ms(lambda: C.compressed_psum(grads, "data"))
+    for g, o in zip(leaves(grads), leaves(out)):
+        want = C.dequantize_int8(*C.quantize_int8(g)).to(g.dtype)
+        check(same_bits(o, want), "compressed_psum on one rank is not "
+                                  "dequantize(quantize(g))")
+    del out
+    (sent, resid), ef_ms = event_ms(lambda: C.ErrorFeedback.apply(
+        grads, C.ErrorFeedback.init(grads)))
+    for g, s_, r in zip(leaves(grads), leaves(sent), leaves(resid)):
+        deq = C.dequantize_int8(*C.quantize_int8(g))
+        check(same_bits(s_, deq.to(g.dtype)) and same_bits(
+            r, g.float() - deq), "ErrorFeedback.apply from zero is not "
+                                 "the quantization and its residual")
+    del sent, resid
+    wire = C.wire_bytes(grads)
+    tree = sum(g.numel() * g.element_size() for g in leaves(grads))
+    return {"elements": n, "leaves": len(leaves(grads)),
+            "dtype": str(leaves(grads)[0].dtype).replace("torch.", ""),
+            "psum_ms": psum_ms, "error_feedback_ms": ef_ms,
+            "bit_identical": True, "wire_bytes_int32": wire,
+            "tree_bytes": tree, "wire_over_tree": wire / tree}
+
+
+def launcher_check(cfg) -> dict:
+    """``python -m repro_torch.launch.train --arch <MODEL_ARCH> --steps 3``
+    in a child process with the reference CLI's defaults (fp32, seq 256,
+    batch 8, on the card): exit 0, finite losses, the first within 1 of
+    ln V."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           MODEL_ARCH, "--steps", str(LAUNCHER_STEPS)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(HERE, "src")]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    log(f"parallel: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env=env, cwd=HERE)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"launcher exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    logged = [float(x) for x in re.findall(r"^step\s+\d+ loss\s+(\S+)",
+                                           proc.stdout, re.M)]
+    done = re.search(r"done: loss (\S+) \S+ (\S+) \((\d+) steps\)",
+                     proc.stdout)
+    check(done is not None, f"no summary line: {proc.stdout[-1000:]}")
+    first, last = float(done.group(1)), float(done.group(2))
+    ln_v = float(np.log(cfg.vocab))
+    check(all(np.isfinite(logged + [first, last])),
+          f"launcher losses not finite: {proc.stdout[-1000:]}")
+    check(abs(first - ln_v) < 1.0,
+          f"launcher's first loss {first} is not within 1 of ln V = {ln_v}")
+    return {"command": " ".join(["python"] + cmd[1:]),
+            "defaults": "fp32, seq 256, batch 8, no remat, device cuda",
+            "returncode": proc.returncode, "logged_losses": logged,
+            "first_loss": first, "last_loss": last,
+            "steps": int(done.group(3)), "ln_vocab": ln_v,
+            "seconds": seconds}
+
+
+def phase_parallel(mesh, ep_row) -> dict:
+    """The parallel layer on one NCCL rank, after the families phase:
+    the MoE's ep_a2a prefill (run there, on its weights) with its fp32
+    check, ring attention, the sharded train step, compressed gradient
+    all-reduce and the launcher."""
+    seconds = {}
+    t0 = time.perf_counter()
+    ep_row["fp32_check"] = ep_fp32_check(mesh)
+    seconds["ep_fp32_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ring = ring_check(mesh)
+    free_card()
+    seconds["ring"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step_row, grads = sharded_step(mesh)
+    seconds["sharded_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compression = compression_check(mesh, grads)
+    del grads
+    free_card()
+    seconds["compression"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launcher = launcher_check(port_config(MODEL_ARCH))
+    seconds["launcher"] = time.perf_counter() - t0
+    import torch.distributed as dist
+    return {"phase": "parallel",
+            "process_group": {"backend": dist.get_backend(),
+                              "world_size": dist.get_world_size(),
+                              "rendezvous": "FileStore in a temporary "
+                                            "directory"},
+            "mesh": {"shape": list(mesh.mesh.shape),
+                     "axes": list(mesh.mesh_dim_names),
+                     "device": mesh.device_type},
+            "ep_a2a": ep_row, "ring": ring, "sharded_step": step_row,
+            "compression": compression, "launcher": launcher,
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -2480,16 +2904,21 @@ def main() -> int:
     del captured
     torch.cuda.empty_cache()
 
-    families_line, t5_attention = phase_families(fa, rn, scan)
-    log("kernels: K2 on cross-attention (Sq != Sk)")
-    k2["cross"] = k2_cross(fa, t5_attention)
-    k2["families"] = {
-        row["arch"]: {"k2": row["prefill"]["k2_launches"],
-                      "k2_tc": row["prefill"]["k2_tc_launches"],
-                      "checks": row["prefill"]["k2_checks"]}
-        for row in families_line["configs"]}
-    del t5_attention
-    torch.cuda.empty_cache()
+    with one_rank_mesh() as mesh:
+        families_line, t5_attention, ep_row = phase_families(fa, rn, scan,
+                                                             mesh)
+        log("kernels: K2 on cross-attention (Sq != Sk)")
+        k2["cross"] = k2_cross(fa, t5_attention)
+        k2["families"] = {
+            row["arch"]: {"k2": row["prefill"]["k2_launches"],
+                          "k2_tc": row["prefill"]["k2_tc_launches"],
+                          "checks": row["prefill"]["k2_checks"]}
+            for row in families_line["configs"]}
+        k2["ep_a2a_launches"] = ep_row["k2_launches"]
+        del t5_attention
+        free_card()
+        parallel_line = phase_parallel(mesh, ep_row)
+    free_card()
 
     train_line = phase_train((scan, fa, rn))
     loop_line = phase_loop_check(port, train_line["measured_seconds"])
@@ -2503,6 +2932,7 @@ def main() -> int:
     emit(degraded_line)
     emit(analyze_line)
     emit(families_line)
+    emit(parallel_line)
     emit(train_line)
     emit(loop_line)
     check_line["total_seconds"] = time.perf_counter() - t_start

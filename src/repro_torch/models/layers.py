@@ -19,10 +19,12 @@ Attention has three implementations selectable via
 keys, ``flash_torch`` above, never the kernel.
 
 Weights keep the reference's (in, out) layout, so a converted reference
-parameter tree is used as it is. The sharding constraints are no-ops
-until sharding is ported; ``attention_partial``,
-``combine_attention_partials`` and ``ring_attention`` come with context
-parallelism (ROADMAP.md, Queue 1).
+parameter tree is used as it is. The sharding constraints place
+DTensors on the current mesh (:mod:`repro_torch.parallel.sharding`);
+:func:`attention` given DTensors runs on each rank's batch and head
+shards (Megatron's head split makes attention shard-local), and
+:func:`ring_attention` is the context-parallel attention over a mesh
+axis.
 """
 from __future__ import annotations
 
@@ -30,9 +32,12 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ref import rmsnorm_ref
+from repro_torch.parallel import sharding
 
 NEG_INF = -1e30
 
@@ -45,21 +50,40 @@ class ModelOptions:
     block_q: int = 512
     block_kv: int = 1024
     remat: bool = True               # activation checkpointing per layer
-    moe_impl: str = "gather"         # gather | dense_dispatch
+    moe_impl: str = "gather"         # gather | dense_dispatch | ep_a2a
     # sequence threshold above which "auto" switches naive → flash_torch
     flash_threshold: int = 2048
+    # Megatron-SP: partition spec (parallel.sharding.P) applied to the
+    # residual stream at layer boundaries
+    act_spec: object = None
+    # attention-internal layout: (batch, seq, heads, hd) — heads over
+    # `model` (the Megatron decomposition)
+    qkv_spec: object = None
+    # separate spec for K/V: GQA kv-head count may not divide the model
+    # axis (then KV heads are replicated across the TP group)
+    kv_spec: object = None
+    # explicit expert parallelism (moe_impl="ep_a2a"): experts sharded
+    # over `ep_axis`, tokens over `dp_axes` (+ seq over ep_axis)
+    ep_axis: object = None
+    dp_axes: object = None
 
 
 def constrain(x: torch.Tensor, opts: ModelOptions) -> torch.Tensor:
-    """Residual-stream sharding constraint: a no-op until sharding is
-    ported."""
+    """Residual-stream sharding constraint: with ``opts.act_spec``, ``x``
+    placed by it on the current mesh (which must exist); without, ``x``
+    as it is."""
+    if opts.act_spec is not None:
+        return sharding.distribute(x, opts.act_spec, sharding.current_mesh())
     return x
 
 
 def constrain_qkv(x: torch.Tensor, opts: ModelOptions,
                   is_kv: bool = False) -> torch.Tensor:
-    """Attention-layout sharding constraint: a no-op until sharding is
-    ported."""
+    """Attention-layout sharding constraint (``opts.kv_spec`` for K/V,
+    ``opts.qkv_spec`` otherwise), as :func:`constrain`."""
+    spec = opts.kv_spec if is_kv else opts.qkv_spec
+    if spec is not None:
+        return sharding.distribute(x, spec, sharding.current_mesh())
     return x
 
 
@@ -391,6 +415,9 @@ def attention_decode(q, k_cache, v_cache, q_pos, k_pos, window=None):
 
 def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
               opts: ModelOptions = DEFAULT_OPTIONS):
+    if sharding.is_dtensor(q):
+        return _sharded_attention(q, k, v, q_pos, k_pos, causal, window,
+                                  opts)
     impl = opts.attn_impl
     if impl == "auto":
         impl = "flash_torch" if k.shape[1] > opts.flash_threshold \
@@ -407,6 +434,47 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     raise ValueError(f"unknown attn_impl {impl!r}")
 
 
+def _sharded_attention(q, k, v, q_pos, k_pos, causal, window, opts):
+    """:func:`attention` over DTensors: the chosen implementation on each
+    rank's shards, through ``local_map``. q's placements decide; a
+    pending sum (``Partial``) is reduced first. Only batch (dim 0) and
+    heads (dim 2) may be sharded — a query's keys must all be on its
+    rank — and the heads only where query and KV heads split alike; K,
+    V and the positions are placed to match. A mesh dimension of size 1
+    shards nothing and counts as replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    place, pos_place = [], []
+    for i, p in enumerate(q.placements):
+        if p.is_partial() or (p.is_shard() and mesh.size(i) == 1):
+            p = Replicate()
+        if p.is_shard() and p.dim not in (0, 2):
+            raise ValueError(
+                f"attention runs shard-local over batch and heads only; "
+                f"q is placed {q.placements} (dimension {p.dim} sharded "
+                f"over mesh axis {mesh.mesh_dim_names[i]!r})")
+        if p.is_shard(2) and (q.shape[2] % mesh.size(i)
+                              or k.shape[2] % mesh.size(i)):
+            raise ValueError(
+                f"{q.shape[2]} query and {k.shape[2]} KV heads do not "
+                f"split over {mesh.size(i)} ranks alike")
+        place.append(p)
+        pos_place.append(Shard(0) if p.is_shard(0) else Replicate())
+
+    def body(q, k, v, q_pos, k_pos):
+        return attention(q, k, v, q_pos, k_pos, causal=causal,
+                         window=window, opts=opts)
+
+    # one output: its placements a list (local_map reads a tuple as one
+    # entry per output)
+    fn = local_map(body, out_placements=place,
+                   in_placements=(place, place, place, pos_place, pos_place),
+                   device_mesh=mesh)
+    return fn(*(sharding.place(x, mesh, place) for x in (q, k, v)),
+              *(sharding.place(p, mesh, pos_place) for p in (q_pos, k_pos)))
+
+
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
@@ -421,3 +489,105 @@ def gelu_mlp(x, w1, b1, w2, b2):
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ w1 + b1, approximate="tanh")
     return h @ w2 + b2
+
+
+# --------------------------------------------------------------------------
+# ring attention (context parallelism)
+# --------------------------------------------------------------------------
+
+def combine_attention_partials(outs, lses):
+    """Merge attention partials computed against disjoint KV shards.
+
+    outs: list of (B,S,H,hd); lses: list of (B,S,H) log-sum-exp. The
+    online-softmax identity: softmax over the union = exp-weighted
+    combination of the partials. A partial whose keys are all masked
+    for a row has lse ≈ -1e30 there and weight exp(-1e30 - m) = 0 beside
+    any partial that has a key for it.
+    """
+    m = lses[0]
+    for l in lses[1:]:
+        m = torch.maximum(m, l)
+    num = torch.zeros(outs[0].shape, dtype=torch.float32,
+                      device=outs[0].device)
+    den = torch.zeros(lses[0].shape, dtype=torch.float32,
+                      device=lses[0].device)
+    for o, l in zip(outs, lses):
+        w = torch.exp(l - m)
+        num = num + o.float() * w[..., None]
+        den = den + w
+    return (num / torch.clamp(den, min=1e-30)[..., None]).to(outs[0].dtype)
+
+
+def attention_partial(q, k, v, q_pos, k_pos, causal=True, window=None,
+                      block_q=512, block_kv=1024):
+    """Flash attention returning (out, lse) for partial-KV combination:
+    out (B,Sq,H,hd) in q's dtype and lse (B,Sq,H) in fp32, the
+    reference's layout. A row with no key in this partial has out 0 and
+    lse -1e30 (the reference averages the masked values there, at the
+    same lse): either way it weighs nothing in
+    :func:`combine_attention_partials`."""
+    bq, bkv = min(block_q, q.shape[1]), min(block_kv, k.shape[1])
+    n_rep = q.shape[2] // k.shape[2]
+    pairs = _block_pairs(q_pos, k_pos, causal, window, bq, bkv)
+    out, lse = _flash_fwd_impl(_heads(q, 1, bq), _heads(k, n_rep, bkv),
+                               _heads(v, n_rep, bkv), q_pos, k_pos, causal,
+                               window, bq, bkv, pairs)
+    sq = q.shape[1]
+    return out[:, :, :sq].transpose(1, 2), lse[:, :, :sq].transpose(1, 2)
+
+
+def _rotate(tensors, group, to_rank: int, from_rank: int):
+    """Start sending ``tensors`` to ``to_rank`` and receiving their like
+    from ``from_rank`` (ranks of ``group``); returns the receive buffers
+    and a ``wait()`` that also keeps the sent tensors alive till then."""
+    got = [torch.empty_like(t) for t in tensors]
+    to_rank = dist.get_global_rank(group, to_rank)
+    from_rank = dist.get_global_rank(group, from_rank)
+    ops = [dist.P2POp(dist.isend, t.contiguous(), to_rank, group)
+           for t in tensors]
+    ops += [dist.P2POp(dist.irecv, g, from_rank, group) for g in got]
+    reqs = dist.batch_isend_irecv(ops)
+
+    def wait():
+        for r in reqs:
+            r.wait()
+        ops.clear()
+
+    return got, wait
+
+
+def ring_attention(q, k, v, q_pos, k_pos, axis_name: str, causal=True,
+                   window=None, block_q=512, block_kv=1024):
+    """Context-parallel attention: sequence sharded over the mesh axis
+    ``axis_name`` of the current mesh.
+
+    The local view, like the reference's ``shard_map`` body: q, k, v are
+    this rank's shards (B, S_loc, H|KH, hd) and q_pos/k_pos their
+    absolute positions. Each of the ring's n steps computes a flash
+    partial against the resident KV shard while the un-repeated K, V and
+    k_pos travel on to the next rank (``batch_isend_irecv``, the
+    reference's ``ppermute``); the n partials are combined in step
+    order, as the reference's scan stacks them. The reference rotates
+    once more after the last step and drops the result; the port does
+    not send it, so a one-rank ring sends nothing (gloo refuses a send
+    to its own rank; NCCL takes it).
+
+    Forward only: under autograd it raises, as the kernel wrappers do.
+    """
+    refuse_autograd("ring_attention", q, k, v)
+    group = sharding.current_mesh().get_group(axis_name)
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    cur = (k, v, k_pos)
+    outs, lses = [], []
+    for step in range(n):
+        last = step == n - 1
+        if not last:
+            nxt, wait = _rotate(cur, group, (rank + 1) % n, (rank - 1) % n)
+        out, lse = attention_partial(q, cur[0], cur[1], q_pos, cur[2],
+                                     causal, window, block_q, block_kv)
+        outs.append(out)
+        lses.append(lse)
+        if not last:
+            wait()
+            cur = tuple(nxt)
+    return combine_attention_partials(outs, lses)

@@ -39,6 +39,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import DEFAULT_OPTIONS, ModelOptions
+from repro_torch.parallel.sharding import gather_dim
 
 Params = Dict[str, Any]
 
@@ -190,11 +191,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 def unstack_layers(stacked: Params, n: int) -> list:
     """The ``n`` layers of a stacked parameter tree (views, no copy),
-    each leaf unbound once."""
+    each leaf unbound once. A DTensor stack sharded over its layers
+    (FSDP's choice for a leaf whose layer count is its largest dim) is
+    gathered first: a layer must be whole on every rank."""
     out = [{} for _ in range(n)]
     for k, v in stacked.items():
         parts = unstack_layers(v, n) if isinstance(v, dict) \
-            else torch.unbind(v)
+            else torch.unbind(gather_dim(v, 0))
         for layer, part in zip(out, parts):
             layer[k] = part
     return out

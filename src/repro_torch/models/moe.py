@@ -1,13 +1,15 @@
 """Mixture-of-Experts FFN in PyTorch: the port of the reference
 package's ``repro.models.moe``, static shapes, capacity-factor routing.
 
-Two implementations, as there:
+Three implementations, as there:
 
 * ``gather`` (default): per-expert top-capacity token selection by a
   sort over tokens; tokens over capacity are dropped and pass through
   the residual.
 * ``dense_dispatch``: Mesh-TF style one-hot dispatch, the same math,
   the small-scale reference of the tests (memory O(T·E·C)).
+* ``ep_a2a``: expert parallelism over a mesh axis with two explicit
+  all-to-alls a layer (:func:`moe_ep_a2a`); capacity is per rank.
 
 Where the two frameworks differ, the port keeps the reference's result:
 
@@ -29,7 +31,10 @@ documents it (:func:`dropless_capacity_factor`).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
@@ -187,9 +192,127 @@ def moe_ffn(x, params, mcfg: MoEConfig, impl: str = "gather", opts=None):
     return y, aux
 
 
+#: all-to-all exchanges made by :func:`moe_ep_a2a` (two a layer), beside
+#: the kernels' launch counters
+A2A_CALLS = 0
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """(ep, ...) → (ep, ...): slice i to group rank i, slice j of the
+    result from rank j. Differentiable (its transpose is itself)."""
+    global A2A_CALLS
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd)
+    A2A_CALLS += 1
+    return all_to_all_single_autograd(x.contiguous(), None, None, group)
+
+
+class _SumOver(torch.autograd.Function):
+    """``all_reduce(SUM)`` over a group, differentiable: the gradient is
+    summed over the group too (the transpose of a replicated sum when
+    each rank back-propagates its own loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _ep_local(x, params, mcfg: MoEConfig, ep: int, group):
+    """The reference's ``shard_map`` body on this rank's tokens x (b,
+    s_loc, d) and experts (E/ep of them): route locally, send each
+    expert's (C, d) slots to its owner, run the local experts on every
+    peer's slots, send the rows back and combine them. Returns y and
+    this rank's aux loss (before the mean over ranks)."""
+    b, s_loc, d = x.shape
+    t, e = b * s_loc, mcfg.n_experts
+    x2d = x.reshape(t, d)
+    cap = capacity(t, mcfg)                     # per-expert C_e
+    e_loc = e // ep
+    probs, topi, sel, order = _routing(x2d, params["router"], mcfg, cap)
+    chosen = order[:cap].T                      # (E, C)
+    gatew = torch.gather(sel, 0, chosen.T).T
+    live = torch.isfinite(gatew)
+    gatew = torch.where(live, gatew, 0.0)
+
+    send = x2d[chosen.reshape(-1)].reshape(e, cap, d)          # (E, C, d)
+    send = send * live[..., None].to(send.dtype)
+    # (E, C, d) → (ep, E_loc, C, d) → a2a → (ep, E_loc, C, d) where dim0
+    # now indexes the SOURCE peer
+    recv = _all_to_all(send.reshape(ep, e_loc, cap, d), group)
+    xe = recv.transpose(0, 1).reshape(e_loc, ep * cap, d)
+    y = _experts(xe, params)
+    # reverse path: back to origin shards, original slot order
+    y = y.reshape(e_loc, ep, cap, d).transpose(0, 1)
+    back = _all_to_all(y, group).reshape(e, cap, d)
+    back = back * gatew[..., None].to(back.dtype)
+    out = combine(back, order, topi)
+    me = probs.mean(0)
+    aux = mcfg.n_experts * torch.sum(me * me)
+    return out.reshape(b, s_loc, d), aux
+
+
 def moe_ep_a2a(x, params, mcfg: MoEConfig, opts):
-    """Expert parallelism with an explicit all-to-all: needs a process
-    group and expert sharding, which come with ``parallel/sharding``."""
-    raise NotImplementedError(
-        "moe_impl='ep_a2a' needs a process group and sharded experts; "
-        "ROADMAP.md Queue 1 lists it with parallel/sharding")
+    """Expert-parallel MoE with explicit all-to-alls over the current mesh
+    (:func:`repro_torch.parallel.sharding.use_mesh`).
+
+    The production pattern moves only the ROUTED tokens: each rank
+    routes its local tokens, sends (E, C_e) slots to the expert owners
+    with one all-to-all, computes its local experts and reverses the
+    all-to-all — wire bytes t_loc·topk·cf·d instead of T_global·d.
+
+    Layout contract: x (B, S, d) placed ``P(dp_axes, ep_axis, None)``,
+    experts ``P(ep_axis, None, None)``, the router replicated. DTensors
+    are placed so, their local shards run the reference's ``shard_map``
+    body, and y comes back a DTensor of x's layout and aux a replicated
+    one; plain tensors are taken as they are on a one-rank mesh.
+    Gradients flow through (the transpose of all_to_all is all_to_all);
+    the aux loss is averaged over ``dp_axes + (ep_axis,)`` by a
+    differentiable sum, as ``pmean`` does.
+    """
+    from repro_torch.parallel import sharding as sh
+    mesh = sh.current_mesh()
+    ep_axis, dp_axes = opts.ep_axis, opts.dp_axes
+    dp = tuple(dp_axes) if isinstance(dp_axes, (tuple, list)) \
+        else (dp_axes,)
+    names = sh.axis_names(mesh)
+    ep = mesh.size(names.index(ep_axis))
+    if mcfg.n_experts % ep:
+        raise ValueError(f"{mcfg.n_experts} experts do not split over "
+                         f"{ep} ranks of {ep_axis!r}")
+    specs = {"router": sh.P(), "w_gate": sh.P(ep_axis, None, None),
+             "w_up": sh.P(ep_axis, None, None),
+             "w_down": sh.P(ep_axis, None, None)}
+    x_spec = sh.P(dp_axes, ep_axis, None)
+
+    def local(t, spec):
+        if sh.is_dtensor(t):
+            return t.redistribute(mesh, sh.to_placements(spec, mesh)) \
+                .to_local()
+        if mesh.size() != 1:
+            raise ValueError(
+                f"moe_ep_a2a on a mesh of {mesh.size()} ranks takes "
+                f"DTensors: a plain tensor does not say which part it is")
+        return t
+
+    y, aux = _ep_local(local(x, x_spec),
+                       {k: local(params[k], sp) for k, sp in specs.items()},
+                       mcfg, ep, mesh.get_group(ep_axis))
+    for axis in dp + (ep_axis,):
+        aux = _SumOver.apply(aux, mesh.get_group(axis))
+    aux = aux / math.prod(mesh.size(names.index(a)) for a in dp + (ep_axis,))
+    if sh.is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Replicate
+        y = DTensor.from_local(y, mesh, sh.to_placements(x_spec, mesh),
+                               run_check=False)
+        aux = DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    return y, aux

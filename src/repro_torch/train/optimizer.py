@@ -5,9 +5,9 @@ dtype (no master copy).
 
 State layout mirrors the parameter tree (two moment trees + step). The
 update is functional: it returns new parameters and a new state and
-changes neither argument. The ZeRO-1 ``state_specs`` waits for sharding
-(ROADMAP.md, Queue 1,
-parallel/sharding).
+changes neither argument. :func:`state_specs` gives the state's
+sharding specs from the parameters' (ZeRO-1 adds ``data`` to the moments
+through :func:`repro_torch.parallel.sharding.zero1_specs`).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.parallel.sharding import P
 from repro_torch.train.tree import leaves, map_leaves, unflatten_like
 
 
@@ -61,6 +62,11 @@ def init(params: Any) -> AdamWState:
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         mu=map_leaves(zeros, params), nu=map_leaves(zeros, params))
+
+
+def state_specs(pspecs: Any) -> AdamWState:
+    """Sharding specs for AdamWState given the parameter specs."""
+    return AdamWState(step=P(), mu=pspecs, nu=pspecs)
 
 
 def global_norm(tree: Any) -> torch.Tensor:

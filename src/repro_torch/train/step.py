@@ -4,20 +4,26 @@ call.
 ``make_train_step`` returns a full production step: loss → gradients
 (optionally accumulated over microbatches) → global-norm clip → AdamW
 update. ``make_prefill_step`` returns the full forward to logits and
-``make_serve_step`` the one-token decode step. The reference's
-``grad_specs`` (gradient sharding) waits for sharding (ROADMAP.md,
-Queue 1, parallel/sharding).
+``make_serve_step`` the one-token decode step.
+
+Parameters may be DTensors (:mod:`repro_torch.parallel.sharding`). The
+model makes plain tensors mid-flight (positions, masks, the aux loss's
+zero), so a step over DTensors runs under DTensor's
+``implicit_replication``, which takes each of them as replicated; its
+metrics come back as plain tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.api import build_model
 from repro_torch.models.layers import DEFAULT_OPTIONS, ModelOptions
+from repro_torch.parallel import sharding
 from repro_torch.train import optimizer as opt
 from repro_torch.train.tree import leaves, map_leaves, unflatten_like
 
@@ -43,11 +49,34 @@ def value_and_grad(loss_fn: Callable, params: Any,
     return loss.detach(), unflatten_like(params, grads)
 
 
+def _over_dtensors(active: bool):
+    """DTensor's ``implicit_replication`` where DTensors meet the plain
+    tensors the model makes; nothing otherwise."""
+    if not active:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    return x.full_tensor() if sharding.is_dtensor(x) else x
+
+
 def make_train_step(cfg: ArchConfig, opts: ModelOptions = DEFAULT_OPTIONS,
-                    tcfg: TrainConfig = TrainConfig()) -> Callable:
+                    tcfg: TrainConfig = TrainConfig(),
+                    grad_specs: Optional[Any] = None) -> Callable:
+    """The train step. ``grad_specs``: a :class:`~repro_torch.parallel.
+    sharding.P` tree like the parameters'; the gradients are placed by it
+    on the current mesh before the optimizer."""
     api = build_model(cfg, opts)
 
     def train_step(params, opt_state, batch):
+        distributed = grad_specs is not None or any(
+            sharding.is_dtensor(p) for p in leaves(params))
+        with _over_dtensors(distributed):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         if tcfg.accum_steps == 1:
             loss, grads = value_and_grad(api.loss, params, batch)
         else:
@@ -66,9 +95,18 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions = DEFAULT_OPTIONS,
                 grads = map_leaves(torch.add, grads, g)
             loss = loss / a
             grads = map_leaves(lambda g: g / a, grads)
+        if grad_specs is not None:
+            # pin gradient sharding to the parameter sharding BEFORE the
+            # optimizer. The reference also puts an optimization barrier
+            # here, against XLA hoisting the optimizer's fp32 converts
+            # above the gradient reduction; eager PyTorch runs the ops in
+            # program order and has no such barrier or need of one.
+            grads = sharding.distribute_tree(grads, grad_specs,
+                                             sharding.current_mesh())
         new_params, new_state, metrics = opt.update(
             tcfg.adamw, params, grads, opt_state)
-        return new_params, new_state, {"loss": loss, **metrics}
+        metrics = {k: _full(v) for k, v in metrics.items()}
+        return new_params, new_state, {"loss": _full(loss), **metrics}
 
     return train_step
 

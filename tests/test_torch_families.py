@@ -376,7 +376,9 @@ def test_ep_a2a_needs_a_process_group():
     _, cfg = configs("qwen3_moe_30b_a3b")
     model = api.build_model(cfg, port_opts(moe_impl="ep_a2a"))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # ep_a2a runs over the current mesh's process group; without a mesh
+    # it raises (tests/test_torch_parallel.py runs it on one)
+    with pytest.raises(RuntimeError, match="no mesh"):
         model.forward(params, to_port({"tokens": np.ones((1, 4), np.int32)}))
     with pytest.raises(ValueError):
         moe.moe_ffn(torch.zeros((1, 4, cfg.d_model)), None, cfg.moe, "nope")

@@ -46,8 +46,9 @@ def test_there_is_something_to_check():
             "engine.py", "report.py", "search.py", "metrics.py",
             "sweep.py", "executor.py", "degraded.py", "__main__.py",
             "_polling_reference.py", "findings.py", "graph.py", "lint.py",
-            "moe.py", "ssm.py", "encdec.py"} <= names
-    for pkg in ("analyze", "models"):
+            "moe.py", "ssm.py", "encdec.py", "sharding.py", "mesh.py",
+            "train.py", "compression.py"} <= names
+    for pkg in ("analyze", "models", "parallel", "launch"):
         assert (PORT / pkg / "__init__.py").exists(), pkg
 
 
@@ -95,8 +96,11 @@ assert "triton" not in sys.modules
 for name in ("repro_torch.analyze", "repro_torch.analyze.__main__",
              "repro_torch.analyze.graph", "repro_torch.analyze.lint",
              "repro_torch.models.moe", "repro_torch.models.ssm",
-             "repro_torch.models.encdec"):
+             "repro_torch.models.encdec", "repro_torch.parallel.sharding",
+             "repro_torch.launch.mesh", "repro_torch.launch.train",
+             "repro_torch.train.compression"):
     assert name in mods, name
+assert "torch.distributed.tensor" not in sys.modules
 print(len(mods))
 """
 
@@ -110,4 +114,4 @@ def test_importing_every_module_pulls_in_neither():
                           capture_output=True, text=True, env=env,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 83
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 89
