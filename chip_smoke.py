@@ -2857,6 +2857,252 @@ def phase_parallel(mesh, ep_row) -> dict:
             "seconds": seconds}
 
 
+# the dry run: full-width cells traced on the production meshes over a
+# fake process group, each in a child process of its own, all at once;
+# (arch, shape, mesh, layers): qwen3_moe's prefill_32k is cut to 4 of its
+# 48 layers (its flash_torch loops over ~1 000 live block pairs a layer
+# in Python: ~11 s a layer on a CPU core), the rest are traced whole
+DRYRUN_CELLS = (("h2o_danube_1_8b", "train_4k", "single", None),
+                ("h2o_danube_1_8b", "train_4k", "multi", None),
+                ("qwen3_moe_30b_a3b", "prefill_32k", "single", 4),
+                ("mistral_large_123b", "decode_32k", "single", None))
+DRYRUN_TIMEOUT = 600
+# the roofline held to the train phase's measured step (its model,
+# batch and options): traced FLOPs == FlopCounterMode's, the predicted
+# peak within 10 % of max_memory_allocated, the bound <= the median step
+ROOFLINE_PEAK_TOL = 0.10
+ROOFLINE_STEPS = 4
+# the ring's backward on one NCCL rank at h2o's layer 0 (S = 8192)
+# against flash_torch's, in fp32 at 2e-5 (TF32 off) and in bf16 (ulps)
+RING_GRAD_TOL = 2e-5
+
+
+def start_dryrun_cells(out_dir: str) -> list:
+    """Start each of DRYRUN_CELLS as ``python -m repro_torch.launch.dryrun``
+    in a child process (one CPU thread each), writing its CSV under
+    ``out_dir``; returns (cell, process, csv path, start time)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(HERE, "src")]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    started = []
+    for i, (arch, shape, pods, layers) in enumerate(DRYRUN_CELLS):
+        out = os.path.join(out_dir, f"cell{i}.csv")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--multi-pod", pods, "--out", out,
+               "--device", "cuda"]
+        if layers:
+            cmd += ["--layers", str(layers)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env,
+                                cwd=HERE)
+        started.append(((arch, shape, pods, layers), proc, out,
+                        time.perf_counter()))
+    return started
+
+
+def finish_dryrun_cells(started) -> list:
+    """Wait for every cell; each must lower with all three terms > 0."""
+    rows = []
+    try:
+        for (arch, shape, pods, layers), proc, out, t0 in started:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"dry run of {arch}/{shape}/{pods} exited "
+                  f"{proc.returncode}: {stdout[-1500:]} {stderr[-1500:]}")
+            with open(out) as f:
+                header, row = f.read().splitlines()
+            fields = dict(zip(header.split(","), row.split(",")))
+            terms = [float(fields[k]) for k in
+                     ("t_compute_ms", "t_memory_ms", "t_coll_ms")]
+            check(all(t > 0 for t in terms),
+                  f"{arch}/{shape}/{pods}: a roofline term is not > 0: {row}")
+            traced = re.search(r"trace ([\d.]+)s", stdout)
+            peak = re.search(r"memory: peak (\S+) B, arguments (\S+) B",
+                             stdout)
+            rows.append({"arch": arch, "shape": shape,
+                         "mesh": fields["mesh"], "chips": int(fields["chips"]),
+                         "layers": layers or port_config(arch).n_layers,
+                         "layers_full": port_config(arch).n_layers,
+                         "row": row, "t_compute_ms": terms[0],
+                         "t_memory_ms": terms[1], "t_coll_ms": terms[2],
+                         "dominant": fields["dominant"],
+                         "peak_bytes_per_device": float(peak.group(1)),
+                         "argument_bytes": float(peak.group(2)),
+                         "trace_seconds": float(traced.group(1)),
+                         "process_seconds": wall})
+    finally:
+        for _, proc, _, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rows
+
+
+def roofline_check() -> dict:
+    """The train phase's step — full-width h2o_danube_1_8b, bf16, no remat,
+    ``auto`` attention, B=2 x S=4096, plain tensors (a 1 x 1 mesh places
+    nothing) — traced on fake tensors and run on the card: the traced
+    FLOPs must equal FlopCounterMode's count of the real step, the
+    predicted peak be within ROOFLINE_PEAK_TOL of max_memory_allocated,
+    and the roofline bound be no more than the measured median step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import roofline
+    from repro_torch.core.hw import H100
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+
+    cfg = port_config(MODEL_ARCH)
+    opts = L.ModelOptions(dtype=torch.bfloat16, remat=False,
+                          attn_impl="auto")
+    dev = torch.device("cuda")
+    free_card()
+    base = torch.cuda.memory_allocated()
+    params = build_model(cfg, opts).init(torch.Generator(dev).manual_seed(0),
+                                         dev)
+    state = opt.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        DataConfig(seed=0, vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH), 0).items()}
+    step = make_train_step(cfg, opts)
+    log("dryrun: the real step under FlopCounterMode")
+    # the trace's formulas: torch 2.11's bmm formula refuses bmm.dtype
+    # (the bf16 score products with out_dtype=float32), and its conv
+    # backward formula ignores groups
+    counter = FlopCounterMode(display=False,
+                              custom_mapping=roofline.CUSTOM_FLOPS)
+    with counter:
+        step(params, state, batch)
+    real_flops = counter.get_total_flops()
+    del counter
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated() - base
+    secs = []
+    p, st = params, state
+    del params, state
+    for _ in range(ROOFLINE_STEPS + 1):
+        t0 = time.perf_counter()
+        p, st, m = step(p, st, batch)
+        m["loss"].item()
+        secs.append(time.perf_counter() - t0)
+    measured = float(np.median(secs[1:]))
+    del p, st, m, batch
+    free_card()
+
+    log("dryrun: the same step traced on fake tensors")
+    t0 = time.perf_counter()
+    shape = ShapeConfig("roofline_check", TRAIN_SEQ, TRAIN_BATCH, "train")
+    stats, tracer, peak, args = trace_step(cfg, shape, opts, None,
+                                           device=dev)
+    trace_s = time.perf_counter() - t0
+    rep = roofline.analyze_trace(MODEL_ARCH, shape.name, "1x1", 1, stats,
+                                 0.0, H100, peak_bytes=peak)
+    bound = rep.step_time_bound
+    check(stats["flops"] == real_flops,
+          f"traced FLOPs {stats['flops']} != FlopCounterMode's {real_flops}")
+    peak_rel = abs(peak - real_peak) / real_peak
+    check(peak_rel <= ROOFLINE_PEAK_TOL,
+          f"predicted peak {peak} vs max_memory_allocated {real_peak}")
+    check(bound <= measured,
+          f"roofline bound {bound} s exceeds the measured step {measured} s")
+    from repro_torch.core.hlo_diag import top_ops
+    return {"arch": MODEL_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "dtype": "bfloat16", "remat": False, "attn_impl": "auto",
+            "traced_flops": stats["flops"], "flop_counter_flops": real_flops,
+            "flops_equal": stats["flops"] == real_flops,
+            "traced_bytes": stats["bytes"],
+            "predicted_peak_bytes": peak, "argument_bytes": args,
+            "max_memory_allocated": real_peak,
+            "peak_rel_diff": peak_rel, "peak_bar": ROOFLINE_PEAK_TOL,
+            "t_compute_ms": rep.t_compute * 1e3,
+            "t_memory_ms": rep.t_memory * 1e3,
+            "t_coll_ms": rep.t_collective * 1e3, "dominant": rep.dominant,
+            "bound_seconds": bound, "measured_seconds": measured,
+            "step_seconds": secs, "measured_over_bound": measured / bound,
+            "trace_seconds": trace_s,
+            "top_ops": [list(r) for r in top_ops(tracer.records, 8)]}
+
+
+def ring_backward_check(mesh) -> dict:
+    """The ring's backward over the one-rank ``model`` axis at h2o's layer
+    0 (S = 8192, window 4096) against ``flash_torch``'s on the same
+    inputs and output weights: fp32 within RING_GRAD_TOL (TF32 off), and
+    bf16's largest difference in ulps."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import use_mesh
+    b, s, h, kh, hd = RING_SHAPE
+    window = port_config(MODEL_ARCH).sliding_window
+    pos = torch.arange(s, device="cuda").expand(b, s)
+    out = {"q": [b, s, h, hd], "k": [b, s, kh, hd], "window": window,
+           "axis": "model", "ranks": 1}
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        q, k, v = seeded_qkv(RING_SHAPE, dtype, seed=12)
+        ct = torch.randn((b, s, h, hd), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(13))
+
+        def grads(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            (fn(*leaves).float() * ct).sum().backward()
+            return [t.grad for t in leaves]
+
+        with use_mesh(mesh):
+            t0 = time.perf_counter()
+            got = grads(lambda q, k, v: L.ring_attention(
+                q, k, v, pos, pos, "model", True, window))
+            torch.cuda.synchronize()
+            ring_s = time.perf_counter() - t0
+        want = grads(lambda q, k, v: L.attention_flash_torch(
+            q, k, v, pos, pos, True, window))
+        row = {"ring_seconds": ring_s,
+               "max_abs_diff": {g: max_abs_diff(a.float(), w.float())
+                                for g, a, w in zip("qkv", got, want)},
+               "bit_identical": all(torch.equal(a, w)
+                                    for a, w in zip(got, want))}
+        if dtype == torch.float32:
+            for g, a, w in zip("qkv", got, want):
+                check(torch.allclose(a, w, atol=RING_GRAD_TOL,
+                                     rtol=RING_GRAD_TOL),
+                      f"ring d{g} != flash_torch's in fp32: "
+                      f"{row['max_abs_diff']}")
+            row["tol"] = RING_GRAD_TOL
+        else:
+            row["max_ulps"] = {g: bf16_ulps(a, w)
+                               for g, a, w in zip("qkv", got, want)}
+        out[name] = row
+        del q, k, v, ct, got, want
+        free_card()
+    return out
+
+
+def phase_dryrun(ring_row) -> dict:
+    """The dry run's full-width cells, each traced in a child process
+    while this process holds the roofline to the measured step."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        log(f"dryrun: {len(DRYRUN_CELLS)} cells in child processes")
+        started = start_dryrun_cells(tmp)
+        try:
+            check_row = roofline_check()
+        finally:
+            cells = finish_dryrun_cells(started)
+    return {"phase": "dryrun", "cells": cells, "roofline_check": check_row,
+            "ring_backward": ring_row,
+            "nvidia_smi": run_text(["nvidia-smi",
+                                    "--query-gpu=name,power.limit",
+                                    "--format=csv,noheader"]),
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -2918,11 +3164,18 @@ def main() -> int:
         del t5_attention
         free_card()
         parallel_line = phase_parallel(mesh, ep_row)
+        free_card()
+        log("dryrun: the ring's backward on one rank")
+        t0 = time.perf_counter()
+        ring_row = ring_backward_check(mesh)
+        ring_row["seconds"] = time.perf_counter() - t0
     free_card()
 
     train_line = phase_train((scan, fa, rn))
     loop_line = phase_loop_check(port, train_line["measured_seconds"])
     check_line = phase_train_check()
+    free_card()
+    dryrun_line = phase_dryrun(ring_row)
 
     emit({"kernels": [k1, k2, k3]})
     emit(profile_line)
@@ -2935,8 +3188,9 @@ def main() -> int:
     emit(parallel_line)
     emit(train_line)
     emit(loop_line)
-    check_line["total_seconds"] = time.perf_counter() - t_start
     emit(check_line)
+    dryrun_line["total_seconds"] = time.perf_counter() - t_start
+    emit(dryrun_line)
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

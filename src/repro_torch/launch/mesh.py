@@ -31,10 +31,11 @@ def _mesh(device, shape: tuple, axes: tuple):
                             mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=DEFAULT_DEVICE):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh("cuda", shape, axes)
+    return _mesh(device, shape, axes)
 
 
 def batch_axes(mesh) -> tuple:

@@ -23,11 +23,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import DEFAULT_OPTIONS, ModelOptions
+from repro_torch.parallel.sharding import gather_dim, gather_fsdp
 from repro_torch.models.lm import (EMPTY_POS, _attn_block,
                                    _attn_decode_block, _attn_shapes,
                                    _chunked_ce, _ffn_block, _ffn_shapes,
-                                   _head, _init_tree, _kv_cache,
-                                   run_layer, unstack_layers)
+                                   _head, _init_tree, _kv_cache, embed_lookup,
+                                   layer_params, run_layer, unstack_layers)
 
 
 def encdec_param_shapes(cfg: ArchConfig):
@@ -82,7 +83,7 @@ def encode(cfg: ArchConfig, params, enc_x: torch.Tensor,
     h = enc_x
     for lp in unstack_layers(params["enc_layers"], cfg.n_layers):
         h = run_layer(opts, _enc_layer, cfg, lp, h, positions, opts)
-    return L.rmsnorm(h, params["enc_norm"])
+    return L.rmsnorm(h, gather_fsdp(params["enc_norm"]))
 
 
 def _dec_layer(cfg, lp, h, positions, enc_out, enc_pos, opts):
@@ -102,7 +103,7 @@ def decode_train(cfg: ArchConfig, params, enc_out: torch.Tensor,
     b, t = tokens.shape
     positions = _positions(b, t, tokens.device)
     enc_pos = _positions(b, enc_out.shape[1], tokens.device)
-    h = params["embed"][tokens.long()].to(opts.dtype)
+    h = embed_lookup(params["embed"], tokens).to(opts.dtype)
     for lp in unstack_layers(params["dec_layers"], cfg.n_layers):
         h = run_layer(opts, _dec_layer, cfg, lp, h, positions, enc_out,
                       enc_pos, opts)
@@ -112,7 +113,7 @@ def decode_train(cfg: ArchConfig, params, enc_out: torch.Tensor,
 def _encoder_input(cfg, params, batch, opts):
     if cfg.audio_stub:
         return batch["frame_embeds"].to(opts.dtype)
-    return params["embed"][batch["tokens_enc"].long()].to(opts.dtype)
+    return embed_lookup(params["embed"], batch["tokens_enc"]).to(opts.dtype)
 
 
 @torch.no_grad()
@@ -122,7 +123,7 @@ def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
     enc_out = encode(cfg, params, _encoder_input(cfg, params, batch, opts),
                      opts)
     h = decode_train(cfg, params, enc_out, batch["tokens"], opts)
-    h = L.rmsnorm(h, params["final_norm"])
+    h = L.rmsnorm(h, gather_fsdp(params["final_norm"]))
     return h @ _head(cfg, params)
 
 
@@ -131,7 +132,8 @@ def loss_fn(cfg: ArchConfig, params, batch, opts=DEFAULT_OPTIONS):
     enc_out = encode(cfg, params, _encoder_input(cfg, params, batch, opts),
                      opts)
     h = decode_train(cfg, params, enc_out, batch["tokens"], opts)
-    h = L.rmsnorm(h, params["final_norm"])
+    h = gather_dim(L.rmsnorm(h, gather_fsdp(params["final_norm"])), 1)
+    # (gathered: the CE chunks the sequence)
     return _chunked_ce(h, _head(cfg, params), batch["labels"])
 
 
@@ -163,7 +165,7 @@ def precompute_cross(cfg: ArchConfig, params, enc_out: torch.Tensor):
     ks, vs = [], []
     b, f = enc_out.shape[:2]
     for lp in unstack_layers(params["dec_layers"], cfg.n_layers):
-        cp = lp["cross"]
+        cp = layer_params(lp)["cross"]
         k, v = enc_out @ cp["wk"], enc_out @ cp["wv"]
         if cfg.qkv_bias:
             k, v = k + cp["bk"], v + cp["bv"]
@@ -179,7 +181,7 @@ def decode_step(cfg: ArchConfig, params, cache, batch,
     (updated IN PLACE), cross-attention over the cached encoder K/V, the
     FFN. Returns (logits (B,V), cache with ``pos + 1``)."""
     tok = batch["tokens"]
-    x = params["embed"][tok.long()].to(opts.dtype)
+    x = embed_lookup(params["embed"], tok).to(opts.dtype)
     pos = cache["pos"]
     b = tok.shape[0]
     hd = cfg.head_dim
@@ -191,6 +193,7 @@ def decode_step(cfg: ArchConfig, params, cache, batch,
     selfc = cache["self"]
     for i, lp in enumerate(unstack_layers(params["dec_layers"],
                                           cfg.n_layers)):
+        lp = layer_params(lp)
         p = {k: v for k, v in lp.items() if k not in ("ffn", "cross")}
         x = _attn_decode_block(cfg, p, x, pos,
                                {name: t[i] for name, t in selfc.items()})
@@ -204,5 +207,5 @@ def decode_step(cfg: ArchConfig, params, cache, batch,
                                cross_qpos, enc_pos)
         x = x + o.reshape(b, 1, cfg.n_heads * hd) @ cp["wo"]
         x, _ = _ffn_block(cfg, lp["ffn"], x, opts)
-    x = L.rmsnorm(x, params["final_norm"])
+    x = L.rmsnorm(x, gather_fsdp(params["final_norm"]))
     return (x @ _head(cfg, params))[:, 0], {**cache, "pos": pos + 1}

@@ -34,8 +34,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
-from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ref import rmsnorm_ref
 from repro_torch.parallel import sharding
 
@@ -68,12 +68,22 @@ class ModelOptions:
     dp_axes: object = None
 
 
+def _constrain(x: torch.Tensor, spec) -> torch.Tensor:
+    """``x`` placed by ``spec`` on the current mesh (which must exist),
+    a dimension that the named axes do not divide left replicated:
+    DTensor shards it unevenly and then refuses views of it (XLA pads
+    it instead)."""
+    mesh = sharding.current_mesh()
+    fit = [e if e is None or x.shape[d] % sharding._axis_size(mesh, e) == 0
+           else None for d, e in enumerate(spec)]
+    return sharding.distribute(x, sharding.P(*fit), mesh)
+
+
 def constrain(x: torch.Tensor, opts: ModelOptions) -> torch.Tensor:
     """Residual-stream sharding constraint: with ``opts.act_spec``, ``x``
-    placed by it on the current mesh (which must exist); without, ``x``
-    as it is."""
+    placed by it on the current mesh; without, ``x`` as it is."""
     if opts.act_spec is not None:
-        return sharding.distribute(x, opts.act_spec, sharding.current_mesh())
+        return _constrain(x, opts.act_spec)
     return x
 
 
@@ -83,7 +93,7 @@ def constrain_qkv(x: torch.Tensor, opts: ModelOptions,
     ``opts.qkv_spec`` otherwise), as :func:`constrain`."""
     spec = opts.kv_spec if is_kv else opts.qkv_spec
     if spec is not None:
-        return sharding.distribute(x, spec, sharding.current_mesh())
+        return _constrain(x, spec)
     return x
 
 
@@ -198,7 +208,8 @@ def _block_pairs(q_pos, k_pos, causal, window, block_q, block_kv):
     any row that attends to some key), ``FULL`` when they leave every
     entry (the mask is the identity), ``PARTIAL`` otherwise. Decided from
     each block's range of valid positions over the batch, so a pair is
-    never skipped while one entry survives; one copy to the host."""
+    never skipped while one entry survives; one copy to the host
+    (:func:`_on_host`)."""
     big = 2 ** 62
     qp = _blockify(q_pos.long(), block_q, pad_value=-1).flatten(1)
     kp = _blockify(k_pos.long(), block_kv, pad_value=2 ** 30).flatten(1)
@@ -207,7 +218,8 @@ def _block_pairs(q_pos, k_pos, causal, window, block_q, block_kv):
     flat = torch.cat([qp.masked_fill(~qv, big).amin(1), qp.amax(1),
                       qv.all(1).long(), kp.amin(1),
                       kp.masked_fill(~kv, -big).amax(1),
-                      kv.all(1).long()]).tolist()
+                      kv.all(1).long()])
+    flat = _on_host(flat).tolist()
     qmin, qmax, qall = (flat[i * nq:(i + 1) * nq] for i in range(3))
     kmin, kmax, kall = (flat[3 * nq + i * nk:3 * nq + (i + 1) * nk]
                         for i in range(3))
@@ -224,6 +236,25 @@ def _block_pairs(q_pos, k_pos, causal, window, block_q, block_kv):
             row.append(FULL if every else PARTIAL if some else SKIP)
         pairs.append(row)
     return pairs
+
+
+def _on_host(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values on the host. A fake tensor (a step traced under
+    ``FakeTensorMode``, which holds no data) has them where its fake
+    mode carries them (``repro_torch.core.roofline.TraceCounter`` does
+    for small integer tensors made from known values); otherwise this
+    raises rather than guess."""
+    if not is_fake(t):
+        return t.cpu()
+    values_of = getattr(t.fake_mode, "values_of", None)
+    values = values_of(t) if values_of is not None else None
+    if values is None:
+        raise RuntimeError(
+            "the blockwise attention decides its block pairs from the "
+            "positions' values, and this trace does not know them (the "
+            "positions were received from another rank or made from "
+            "unknown data)")
+    return values
 
 
 def _block_mask(qpblk, kpblk, causal, window):
@@ -390,11 +421,19 @@ def attention_flash_torch(q, k, v, q_pos, k_pos, causal=True, window=None,
                             min(block_kv, k.shape[1]))
 
 
-def attention_decode(q, k_cache, v_cache, q_pos, k_pos, window=None):
+def attention_decode(q, k_cache, v_cache, q_pos, k_pos, window=None,
+                     reduce=None):
     """Single-step decode attention.
 
     q: (B,1,H,hd); caches: (B,S,KH,hd); k_pos: (B,S) absolute positions of
     cache slots (2**30 marks empty slots — they mask out via causality).
+
+    ``reduce(t, op)`` (``op`` "max" or "sum") completes a reduction
+    over the keys of other ranks, when the caches hold this rank's part
+    of the sequence (:func:`decode_on_shards`): the softmax's max and
+    sum are reduced before the probabilities are formed, so they round
+    to q's dtype and multiply the cache in its dtype as on one rank,
+    and the parts of the output are summed in fp32.
     """
     kh = k_cache.shape[2]
     n_rep = q.shape[2] // kh
@@ -408,9 +447,79 @@ def attention_decode(q, k_cache, v_cache, q_pos, k_pos, window=None):
     if window is not None:
         valid &= (q_pos[:, :, None] - k_pos[:, None, :]) < window
     logits = torch.where(valid[:, None, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if reduce is None:
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    else:
+        p = torch.exp(logits - reduce(logits.amax(dim=-1, keepdim=True),
+                                      "max"))
+        probs = (p / reduce(p.sum(dim=-1, keepdim=True), "sum")).to(q.dtype)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v_cache)
+    if reduce is not None:
+        out = reduce(out.float(), "sum").to(out.dtype)
     return out.reshape(b, 1, kh * n_rep, hd)
+
+
+def decode_on_shards(q, k, v, pos, cache, window=None):
+    """One decode step's attention over a DTensor KV cache: write the new
+    token's k, v and position into ``cache`` (this layer's ``k``, ``v``
+    (B, S, KH, hd) and ``kpos`` (B, S), placed as ``cache_specs`` places
+    them) in place, then attend. Runs on each rank's shards through
+    ``local_map``: batch and KV heads as the cache splits them (the query
+    heads alike), the whole new token on every rank of a sharded
+    sequence, which writes it only where its slot falls in the rank's
+    range. :func:`attention_decode` attends on each rank; a sequence
+    split over ranks is attended in parts, each against the rank's
+    keys, with the softmax's max and sum and the output all-reduced over
+    those ranks (its ``reduce``). q (B,1,H,hd), k, v (B,1,KH,hd), pos
+    (B,)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    kc = cache["k"]
+    mesh = kc.device_mesh
+    seq_dims = [i for i, p in enumerate(kc.placements) if p.is_shard(1)]
+    head_dims = {i for i, p in enumerate(kc.placements) if p.is_shard(2)}
+    batch = [Shard(0) if p.is_shard(0) else Replicate()
+             for p in kc.placements]
+    q_place = [Shard(2) if i in head_dims else p
+               for i, p in enumerate(batch)]
+    kpos_place = cache["kpos"].placements
+
+    def body(q, k, v, pos, kc, vc, kp):
+        b, s_loc = kc.shape[:2]
+        first = 0
+        for i in seq_dims:               # this rank's range of slots
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+        first *= s_loc
+        bi = torch.arange(b, device=q.device)
+        slot = (pos % (kp.shape[1])).long()
+        here = slot - first
+        mine = (here >= 0) & (here < s_loc)
+        here = here.clamp(0, s_loc - 1)
+        for buf, new in ((kc, k), (vc, v)):
+            buf[bi, here] = torch.where(mine[:, None, None], new[:, 0],
+                                        buf[bi, here])
+        kp[bi, slot] = pos
+        keys = kp[:, first:first + s_loc]
+
+        def reduce(t, op):
+            for i in seq_dims:
+                t = funcol.all_reduce(t, op, (mesh, i))
+            return t
+
+        return attention_decode(q, kc, vc, pos[:, None], keys, window,
+                                reduce if seq_dims else None)
+
+    kv_new = [Replicate() if i in seq_dims else p
+              for i, p in enumerate(kc.placements)]
+    fn = local_map(body, out_placements=q_place,
+                   in_placements=(q_place, kv_new, kv_new, batch,
+                                  kc.placements, kc.placements, kpos_place),
+                   device_mesh=mesh)
+    return fn(sharding.place(q, mesh, q_place),
+              *(sharding.place(t, mesh, kv_new) for t in (k, v)),
+              sharding.place(pos, mesh, batch), kc, cache["v"],
+              cache["kpos"])
 
 
 def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
@@ -437,58 +546,109 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
 def _sharded_attention(q, k, v, q_pos, k_pos, causal, window, opts):
     """:func:`attention` over DTensors: the chosen implementation on each
     rank's shards, through ``local_map``. q's placements decide; a
-    pending sum (``Partial``) is reduced first. Only batch (dim 0) and
-    heads (dim 2) may be sharded — a query's keys must all be on its
-    rank — and the heads only where query and KV heads split alike; K,
-    V and the positions are placed to match. A mesh dimension of size 1
-    shards nothing and counts as replicated."""
-    from torch.distributed.tensor import Replicate, Shard
+    pending sum (``Partial``) is reduced first. Batch (dim 0), sequence
+    (dim 1) and heads (dim 2) may be sharded; K, V and the positions are
+    placed to match, except that K and V stay whole along a mesh
+    dimension where q's sequence is split (each rank's queries attend to
+    every key, at their absolute positions: context parallelism by an
+    all-gather) or where the query heads split and the KV heads do not
+    (GQA with fewer KV heads than ranks: each rank attends with the KV
+    heads its query heads read). Gradients of K and V are summed over
+    such a dimension. A mesh dimension of size 1 shards nothing and
+    counts as replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
-    place, pos_place = [], []
+    place, kv_place, kv_grad, qpos_place, kpos_place = [], [], [], [], []
+    kv_dim = None
     for i, p in enumerate(q.placements):
         if p.is_partial() or (p.is_shard() and mesh.size(i) == 1):
             p = Replicate()
-        if p.is_shard() and p.dim not in (0, 2):
+        if p.is_shard() and p.dim not in (0, 1, 2):
             raise ValueError(
-                f"attention runs shard-local over batch and heads only; "
-                f"q is placed {q.placements} (dimension {p.dim} sharded "
-                f"over mesh axis {mesh.mesh_dim_names[i]!r})")
-        if p.is_shard(2) and (q.shape[2] % mesh.size(i)
-                              or k.shape[2] % mesh.size(i)):
-            raise ValueError(
-                f"{q.shape[2]} query and {k.shape[2]} KV heads do not "
-                f"split over {mesh.size(i)} ranks alike")
+                f"attention runs shard-local over batch, sequence and "
+                f"heads only; q is placed {q.placements} (dimension "
+                f"{p.dim} sharded over mesh axis "
+                f"{mesh.mesh_dim_names[i]!r})")
+        kp, kg = p, None
+        if p.is_shard(2):
+            hq, n_rep = q.shape[2] // mesh.size(i), q.shape[2] // k.shape[2]
+            if q.shape[2] % mesh.size(i) or (
+                    k.shape[2] % mesh.size(i)
+                    and (kv_dim is not None
+                         or (hq % n_rep and n_rep % hq))):
+                raise ValueError(
+                    f"{q.shape[2]} query and {k.shape[2]} KV heads do not "
+                    f"split over {mesh.size(i)} ranks")
+            if k.shape[2] % mesh.size(i):
+                kv_dim, kp, kg = i, Replicate(), Partial()
+        elif p.is_shard(1):
+            kp, kg = Replicate(), Partial()
         place.append(p)
-        pos_place.append(Shard(0) if p.is_shard(0) else Replicate())
+        kv_place.append(kp)
+        kv_grad.append(kg or kp)
+        qpos_place.append(p if p.is_shard() and p.dim < 2 else Replicate())
+        kpos_place.append(Shard(0) if kp.is_shard(0) else Replicate())
 
     def body(q, k, v, q_pos, k_pos):
+        if kv_dim is not None:           # this rank's query heads' KV heads
+            hq = q.shape[2]
+            n_rep = hq * mesh.size(kv_dim) // k.shape[2]
+            first = mesh.get_local_rank(kv_dim) * hq
+            kv = slice(first // n_rep, (first + hq - 1) // n_rep + 1)
+            k, v = k[:, :, kv], v[:, :, kv]
         return attention(q, k, v, q_pos, k_pos, causal=causal,
                          window=window, opts=opts)
 
     # one output: its placements a list (local_map reads a tuple as one
     # entry per output)
     fn = local_map(body, out_placements=place,
-                   in_placements=(place, place, place, pos_place, pos_place),
+                   in_placements=(place, kv_place, kv_place, qpos_place,
+                                  kpos_place),
+                   in_grad_placements=(place, kv_grad, kv_grad, qpos_place,
+                                       kpos_place),
                    device_mesh=mesh)
-    return fn(*(sharding.place(x, mesh, place) for x in (q, k, v)),
-              *(sharding.place(p, mesh, pos_place) for p in (q_pos, k_pos)))
+    return fn(sharding.place(q, mesh, place),
+              *(sharding.place(x, mesh, kv_place) for x in (k, v)),
+              sharding.place(q_pos, mesh, qpos_place),
+              sharding.place(k_pos, mesh, kpos_place))
 
 
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``. A DTensor ``x`` sharded somewhere, times a weight whole
+    on every rank, is multiplied on each rank's shard (the weight's
+    gradient summed over ``x``'s sharded mesh dimensions): DTensor's own
+    product flattens a batch and a sequence sharded over two mesh axes
+    into one dimension, which it cannot propagate under fake tensors."""
+    if not (sharding.is_dtensor(x) and sharding.is_dtensor(w)
+            and all(p.is_replicate() for p in w.placements)
+            and any(p.is_shard() for p in x.placements)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    place = list(x.placements)
+    grad = [Partial() if p.is_shard() else Replicate() for p in place]
+    fn = local_map(torch.matmul, out_placements=place,
+                   in_placements=(place, w.placements),
+                   in_grad_placements=(place, grad), device_mesh=mesh)
+    return fn(x, w)
+
+
 def swiglu(x, w_gate, w_up, w_down):
-    g = x @ w_gate
-    u = x @ w_up
-    return (F.silu(g) * u) @ w_down
+    g = matmul(x, w_gate)
+    u = matmul(x, w_up)
+    return matmul(F.silu(g) * u, w_down)
 
 
 def gelu_mlp(x, w1, b1, w2, b2):
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(x @ w1 + b1, approximate="tanh")
-    return h @ w2 + b2
+    h = F.gelu(matmul(x, w1) + b1, approximate="tanh")
+    return matmul(h, w2) + b2
 
 
 # --------------------------------------------------------------------------
@@ -504,6 +664,12 @@ def combine_attention_partials(outs, lses):
     for a row has lse ≈ -1e30 there and weight exp(-1e30 - m) = 0 beside
     any partial that has a key for it.
     """
+    return _combine(outs, lses)[0]
+
+
+def _combine(outs, lses):
+    """:func:`combine_attention_partials`' output, and the log-sum-exp
+    over the union of the partials' keys (fp32, (B,S,H))."""
     m = lses[0]
     for l in lses[1:]:
         m = torch.maximum(m, l)
@@ -515,7 +681,8 @@ def combine_attention_partials(outs, lses):
         w = torch.exp(l - m)
         num = num + o.float() * w[..., None]
         den = den + w
-    return (num / torch.clamp(den, min=1e-30)[..., None]).to(outs[0].dtype)
+    den = torch.clamp(den, min=1e-30)
+    return (num / den[..., None]).to(outs[0].dtype), m + torch.log(den)
 
 
 def attention_partial(q, k, v, q_pos, k_pos, causal=True, window=None,
@@ -556,6 +723,85 @@ def _rotate(tensors, group, to_rank: int, from_rank: int):
     return got, wait
 
 
+class _RingAttention(torch.autograd.Function):
+    """The ring as one Function. Forward: a flash partial against each
+    KV shard as it comes round, combined in step order. Backward: the
+    reverse rotation — the KV shards travel round again with their
+    gradients, each step's partial is recomputed against the combined
+    lse (``_flash_bwd_impl``, as :class:`_FlashCore` does on one rank),
+    dQ accumulates in place, and after n steps dK and dV are back on the
+    rank that owns their shard. Each step's dK, dV of the query heads of
+    a KV head are cast to k's dtype and added up head by head, as
+    :class:`_FlashCore` adds them, then onto the travelling sum."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, group, causal, window, block_q,
+                block_kv):
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        cur = (k, v, k_pos)
+        outs, lses = [], []
+        for step in range(n):
+            last = step == n - 1
+            if not last:
+                nxt, wait = _rotate(cur, group, (rank + 1) % n,
+                                    (rank - 1) % n)
+            out, lse = attention_partial(q, cur[0], cur[1], q_pos, cur[2],
+                                         causal, window, block_q, block_kv)
+            outs.append(out)
+            lses.append(lse)
+            if not last:
+                wait()
+                cur = tuple(nxt)
+        out, lse = _combine(outs, lses)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        ctx.meta = (group, causal, window, block_q, block_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        group, causal, window, block_q, block_kv = ctx.meta
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        b, sq, h, hd = q.shape
+        sk, kh = k.shape[1], k.shape[2]
+        n_rep = h // kh
+        bq, bkv = min(block_q, sq), min(block_kv, sk)
+        qh, outh, douth = (_heads(t, 1, bq) for t in (q, out, dout))
+        lseh = F.pad(lse.transpose(1, 2), (0, qh.shape[2] - sq))
+        dq = torch.zeros(qh.shape, dtype=torch.float32, device=q.device)
+
+        def per_kv_head(g):      # the gradient of repeating K/V
+            g = g.view(b, kh, n_rep, -1, hd)[:, :, :, :sk].to(k.dtype)
+            total = g[:, :, 0]
+            for r in range(1, n_rep):        # in k's dtype, head by head
+                total = total + g[:, :, r]
+            return total.transpose(1, 2)
+
+        kc, vc, kpc = k, v, k_pos
+        dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+        for step in range(n):
+            pairs = _block_pairs(q_pos, kpc, causal, window, bq, bkv)
+            gq, gk, gv = _flash_bwd_impl(
+                qh, _heads(kc, n_rep, bkv), _heads(vc, n_rep, bkv), q_pos,
+                kpc, outh, lseh, douth, causal, window, bq, bkv, pairs)
+            dq.add_(gq)
+            dk, dv = dk + per_kv_head(gk), dv + per_kv_head(gv)
+            if n == 1:                   # gloo refuses a send to itself
+                break
+            # the shard goes on with its gradients; after the last step
+            # only the gradients, to the rank that owns them
+            last = step == n - 1
+            got, wait = _rotate((dk, dv) if last else (kc, vc, kpc, dk, dv),
+                                group, (rank + 1) % n, (rank - 1) % n)
+            wait()
+            if last:
+                dk, dv = got
+            else:
+                kc, vc, kpc, dk, dv = got
+        dq = dq[:, :, :sq].transpose(1, 2).to(q.dtype)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
 def ring_attention(q, k, v, q_pos, k_pos, axis_name: str, causal=True,
                    window=None, block_q=512, block_kv=1024):
     """Context-parallel attention: sequence sharded over the mesh axis
@@ -572,22 +818,10 @@ def ring_attention(q, k, v, q_pos, k_pos, axis_name: str, causal=True,
     not send it, so a one-rank ring sends nothing (gloo refuses a send
     to its own rank; NCCL takes it).
 
-    Forward only: under autograd it raises, as the kernel wrappers do.
+    Differentiable, as ``jax.grad`` of the reference's ring is: the
+    backward is :class:`_RingAttention`'s reverse rotation, n more
+    transfers of K, V, k_pos and their gradients (none on one rank).
     """
-    refuse_autograd("ring_attention", q, k, v)
     group = sharding.current_mesh().get_group(axis_name)
-    n, rank = dist.get_world_size(group), dist.get_rank(group)
-    cur = (k, v, k_pos)
-    outs, lses = [], []
-    for step in range(n):
-        last = step == n - 1
-        if not last:
-            nxt, wait = _rotate(cur, group, (rank + 1) % n, (rank - 1) % n)
-        out, lse = attention_partial(q, cur[0], cur[1], q_pos, cur[2],
-                                     causal, window, block_q, block_kv)
-        outs.append(out)
-        lses.append(lse)
-        if not last:
-            wait()
-            cur = tuple(nxt)
-    return combine_attention_partials(outs, lses)
+    return _RingAttention.apply(q, k, v, q_pos, k_pos, group, causal,
+                                window, block_q, block_kv)

@@ -39,7 +39,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import DEFAULT_OPTIONS, ModelOptions
-from repro_torch.parallel.sharding import gather_dim
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import gather_dim, gather_fsdp, is_dtensor
 
 Params = Dict[str, Any]
 
@@ -210,7 +211,55 @@ def _n_stacked(stacked: Params) -> int:
 
 
 def _head(cfg: ArchConfig, params: Params) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["head"]
+    """The LM head (d, V). A DTensor head has its FSDP shards gathered
+    first, as :func:`embed_lookup` gathers the table: the
+    cross-entropy's gather of the gold logit then meets the vocabulary
+    sharded over the tensor-parallel axis at most."""
+    if cfg.tie_embeddings:
+        return gather_fsdp(params["embed"]).T
+    return gather_fsdp(params["head"])
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. A DTensor table has its FSDP shards gathered
+    first (``gather_fsdp``), then is looked up on each rank's shards
+    through ``local_map``, as Megatron's vocab-parallel embedding does:
+    a rank returns its vocabulary shard's rows and zeros for the tokens
+    outside it, summed over the vocabulary's mesh dimensions (one row
+    and zeros: the sum is the row's bits). DTensor's own masked
+    lookup refuses a table sharded in two dimensions, and its backward
+    (``index_put`` of a sequence-sharded gradient) fails in torch 2.11."""
+    if not is_dtensor(table):
+        return table[tokens.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    table = gather_fsdp(table)
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    tok = [Shard(0) if is_dtensor(tokens) and p.is_shard(0) else Replicate()
+           for p in (tokens.placements if is_dtensor(tokens)
+                     else [Replicate()] * mesh.ndim)]
+    out = [Partial() if i in vocab else p for i, p in enumerate(tok)]
+    grad = [Shard(0) if i in vocab else Partial() if p.is_shard() else
+            Replicate() for i, p in enumerate(tok)]
+
+    def body(tab, ids):
+        first = 0
+        for i in vocab:                  # this rank's vocabulary rows
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+        ids = ids.long() - first * tab.shape[0]
+        mine = (ids >= 0) & (ids < tab.shape[0])
+        rows = tab[ids.clamp(0, tab.shape[0] - 1)]
+        return torch.where(mine[..., None], rows, 0)
+
+    fn = local_map(body, out_placements=out,
+                   in_placements=(table.placements, tok),
+                   in_grad_placements=(grad, tok), device_mesh=mesh)
+    # the all-reduce at the lookup's end, as Megatron's: a pending sum
+    # left in the residual stream would turn the next column-parallel
+    # product into a whole-weight one on every rank
+    return fn(table, sharding.place(tokens, mesh, tok)).redistribute(
+        mesh, tok)
 
 
 # --------------------------------------------------------------------------
@@ -220,10 +269,45 @@ def _head(cfg: ArchConfig, params: Params) -> torch.Tensor:
 def _qkv(cfg, p, h, src=None):
     """q from ``h``; k, v from ``src`` (``h`` unless cross-attention)."""
     src = h if src is None else src
-    q, k, v = h @ p["wq"], src @ p["wk"], src @ p["wv"]
+    q, k, v = (L.matmul(h, p["wq"]), L.matmul(src, p["wk"]),
+               L.matmul(src, p["wv"]))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
+
+
+def _sp_gather(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Megatron-SP's gather: a sequence sharded between layers made
+    whole before a tensor-parallel (column-split) weight; before a weight
+    whole on every rank (ZeRO-3, context parallelism) it stays split."""
+    if is_dtensor(w) and any(p.is_shard() for p in w.placements):
+        return gather_dim(h, 1)
+    return h
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) → (B, S, n, hd). A DTensor whose last dimension is
+    sharded in pieces that are not whole heads is gathered first:
+    DTensor refuses that view (XLA pads the heads instead)."""
+    if is_dtensor(x) and any(
+            p.is_shard(x.ndim - 1) and n_heads % x.device_mesh.size(i)
+            for i, p in enumerate(x.placements)):
+        x = gather_dim(x, -1)
+    return x.reshape(*x.shape[:2], n_heads, hd)
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, S, n, hd) → (B, S, n·hd). A DTensor with whole heads on every
+    rank is reshaped on its local shards: DTensor's own view would meet,
+    in the backward, a gradient sharded in pieces that are not whole
+    heads (the row-parallel ``wo``'s)."""
+    if is_dtensor(o) and not any(p.is_shard(2) for p in o.placements):
+        from torch.distributed.tensor import DTensor
+        loc = o.to_local()
+        return DTensor.from_local(loc.reshape(*loc.shape[:2], -1),
+                                  o.device_mesh, o.placements,
+                                  run_check=False)
+    return o.reshape(*o.shape[:2], -1)
 
 
 def _attn_block(cfg, p, x, positions, opts, causal=True,
@@ -231,15 +315,16 @@ def _attn_block(cfg, p, x, positions, opts, causal=True,
     """Pre-norm attention with residual. kv: optional (k_src, k_pos) for
     cross-attention (enc-dec): K/V from ``k_src``, keys at ``k_pos``, no
     RoPE and no window."""
-    h = L.rmsnorm(x, p["ln"])
-    q, k, v = _qkv(cfg, p, h, None if kv is None else kv[0])
+    h = _sp_gather(L.rmsnorm(x, p["ln"]), p["wq"])
+    q, k, v = _qkv(cfg, p, h,
+                   None if kv is None else _sp_gather(kv[0], p["wk"]))
     b, sq = q.shape[:2]
     sk = k.shape[1]
     hd = cfg.head_dim
-    q = L.constrain_qkv(q.reshape(b, sq, cfg.n_heads, hd), opts)
-    k = L.constrain_qkv(k.reshape(b, sk, cfg.n_kv_heads, hd), opts,
+    q = L.constrain_qkv(_split_heads(q, cfg.n_heads, hd), opts)
+    k = L.constrain_qkv(_split_heads(k, cfg.n_kv_heads, hd), opts,
                         is_kv=True)
-    v = L.constrain_qkv(v.reshape(b, sk, cfg.n_kv_heads, hd), opts,
+    v = L.constrain_qkv(_split_heads(v, cfg.n_kv_heads, hd), opts,
                         is_kv=True)
     if kv is None:
         k_pos = positions
@@ -250,8 +335,7 @@ def _attn_block(cfg, p, x, positions, opts, causal=True,
     o = L.attention(q, k, v, positions, k_pos, causal=causal,
                     window=cfg.sliding_window if kv is None else None,
                     opts=opts)
-    o = L.constrain_qkv(o, opts)
-    o = o.reshape(b, sq, cfg.n_heads * hd) @ p["wo"]
+    o = L.matmul(_merge_heads(L.constrain_qkv(o, opts)), p["wo"])
     return x + L.constrain(o, opts)
 
 
@@ -262,17 +346,46 @@ def _ffn_block(cfg, p, x, opts):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "router" in p:                       # MoE FFN
         y, aux = M.moe_ffn(h, p, cfg.moe, opts.moe_impl, opts)
-    elif "w1" in p:                         # GELU MLP
+        return x + L.constrain(y, opts), aux
+    h = _sp_gather(h, p["w1"] if "w1" in p else p["w_gate"])
+    if "w1" in p:                           # GELU MLP
         y = L.gelu_mlp(h, p["w1"], p["b1"], p["w2"], p["b2"])
     else:                                   # SwiGLU
         y = L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
     return x + L.constrain(y, opts), aux
 
 
+def _ssm_on_shards(h, sp, scfg):
+    """:func:`~repro_torch.models.ssm.ssm_block` over a DTensor ``h``:
+    on each rank's batch shard through ``local_map``, the block's
+    weights gathered whole (its in-projection's outputs are split into
+    z, x, B, C and dt at offsets no weight shard keeps to), their
+    gradients summed over the batch's mesh dimensions."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = h.device_mesh
+    place = [Shard(0) if p.is_shard(0) else Replicate()
+             for p in h.placements]
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if p.is_shard() else Replicate() for p in place]
+    names = sorted(sp)
+
+    def body(x, *ws):
+        return S.ssm_block(x, dict(zip(names, ws)), scfg)
+
+    fn = local_map(body, out_placements=place,
+                   in_placements=(place, *[whole] * len(names)),
+                   in_grad_placements=(place, *[grad] * len(names)),
+                   device_mesh=mesh)
+    return fn(sharding.place(h, mesh, place),
+              *(sharding.place(sp[k], mesh, whole) for k in names))
+
+
 def _ssm_layer(cfg, p, x, opts):
-    h = L.rmsnorm(x, p["ln"])
+    h = gather_dim(L.rmsnorm(x, p["ln"]), 1)   # the scan reads it whole
     sp = {k: v for k, v in p.items() if k not in ("ln", "ffn")}
-    x = x + S.ssm_block(h, sp, cfg.ssm)
+    block = _ssm_on_shards if is_dtensor(h) else S.ssm_block
+    x = x + L.constrain(block(h, sp, cfg.ssm), opts)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
         x, aux = _ffn_block(cfg, p["ffn"], x, opts)
@@ -301,12 +414,28 @@ def _hybrid_period(cfg, lp, x, positions, opts, causal=True):
 # backbone forward (train / prefill)
 # --------------------------------------------------------------------------
 
-def run_layer(opts: ModelOptions, fn, *args):
-    """``fn(*args)``, checkpointed under ``opts.remat`` and autograd (the
-    reference's ``jax.checkpoint`` of a layer)."""
+def layer_params(lp: Params) -> Params:
+    """One layer's parameters with their FSDP shards gathered (DTensors;
+    plain tensors as they are): what the layer multiplies by, as FSDP
+    gathers a layer's weights before it runs and the reference's XLA
+    does inside its scan. Left to DTensor's strategy choice, torch 2.11
+    gathers some tensor-parallel shards too and runs those products
+    whole on every rank."""
+    return {k: layer_params(v) if isinstance(v, dict) else gather_fsdp(v)
+            for k, v in lp.items()}
+
+
+def run_layer(opts: ModelOptions, fn, cfg, lp, *args):
+    """``fn(cfg, lp, *args)`` with ``lp`` gathered by :func:`layer_params`
+    inside, checkpointed under ``opts.remat`` and autograd (the
+    reference's ``jax.checkpoint`` of a layer; the backward gathers
+    again)."""
+    def body(cfg, lp, *args):
+        return fn(cfg, layer_params(lp), *args)
+
     if opts.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(body, cfg, lp, *args, use_reentrant=False)
+    return body(cfg, lp, *args)
 
 
 def _stacked_kinds(params: Params) -> Dict[str, Params]:
@@ -352,7 +481,7 @@ def embed_inputs(cfg: ArchConfig, params: Params,
     if cfg.audio_stub and "frame_embeds" in batch:
         parts.append(batch["frame_embeds"].to(opts.dtype))
     if "tokens" in batch:
-        parts.append(params["embed"][batch["tokens"].long()])
+        parts.append(embed_lookup(params["embed"], batch["tokens"]))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -365,7 +494,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     """Full forward to logits (B,S,V)."""
     x, positions = embed_inputs(cfg, params, batch, opts)
     x, _ = backbone(cfg, params, x, positions, opts)
-    x = L.rmsnorm(x, params["final_norm"])
+    x = L.rmsnorm(x, gather_fsdp(params["final_norm"]))
     return x @ _head(cfg, params)
 
 
@@ -384,9 +513,13 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
         ll = labels[:, c0:c0 + chunk].long()
         logits = (x[:, c0:c0 + chunk] @ head).float()
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ll.clamp(min=0)[..., None])[..., 0]
+        # the gold logit stays (B, c, 1) until it meets lse: over a
+        # vocabulary-sharded DTensor it is a masked partial sum, whose
+        # mask DTensor applies by the gather's own shape
+        gold = torch.gather(logits, -1, ll.clamp(min=0)[..., None])
         valid = ll >= 0
-        tot = tot + torch.where(valid, lse - gold, 0.0).sum()
+        tot = tot + torch.where(valid, (lse[..., None] - gold)[..., 0],
+                                0.0).sum()
         cnt = cnt + valid.sum()
     return tot / cnt.clamp(min=1)
 
@@ -398,7 +531,8 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     plus 0.01 × the MoE load-balance loss (0 without MoE)."""
     x, positions = embed_inputs(cfg, params, batch, opts)
     x, aux = backbone(cfg, params, x, positions, opts)
-    x = L.rmsnorm(x, params["final_norm"])
+    x = gather_dim(L.rmsnorm(x, gather_fsdp(params["final_norm"])), 1)
+    # (gathered: the CE chunks the sequence)
     labels = batch["labels"]
     if labels.shape[1] != x.shape[1]:       # stub modality prefix: no loss
         labels = F.pad(labels, (x.shape[1] - labels.shape[1], 0), value=-1)
@@ -465,13 +599,16 @@ def _attn_decode_block(cfg, p, x, pos, kcache):
     h = L.rmsnorm(x, p["ln"])
     q, k, v = _qkv(cfg, p, h)
     hd = cfg.head_dim
-    q = q.reshape(b, 1, cfg.n_heads, hd)
-    k = k.reshape(b, 1, cfg.n_kv_heads, hd)
-    v = v.reshape(b, 1, cfg.n_kv_heads, hd)
+    q = _split_heads(q, cfg.n_heads, hd)
+    k = _split_heads(k, cfg.n_kv_heads, hd)
+    v = _split_heads(v, cfg.n_kv_heads, hd)
     qpos = pos[:, None]                                    # (B,1)
     q = L.apply_rope(q, qpos, cfg.rope_theta)
     k = L.apply_rope(k, qpos, cfg.rope_theta)
 
+    if is_dtensor(kcache["k"]):
+        o = L.decode_on_shards(q, k, v, pos, kcache, cfg.sliding_window)
+        return x + _merge_heads(o) @ p["wo"]
     s = kcache["k"].shape[1]
     slot = (pos % s).long()                                # ring buffer
     bi = torch.arange(b, device=x.device)
@@ -514,7 +651,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
     cache). Unlike the reference, the KV tensors and SSM states of
     ``cache`` are updated IN PLACE (one cache, not one per step); the
     returned dict shares them and carries ``pos + 1``."""
-    x = params["embed"][batch["tokens"].long()].to(opts.dtype)   # (B,1,d)
+    x = embed_lookup(params["embed"], batch["tokens"]).to(opts.dtype)   # (B,1,d)
     pos = cache["pos"]
 
     def layer_of(tree, i):
@@ -525,12 +662,13 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
     if cfg.family == "ssm":
         for i, lp in enumerate(unstack_layers(params["ssm_layers"],
                                               cfg.n_layers)):
-            x = _ssm_decode_layer(cfg, lp, x, layer_of(cache["ssm"], i),
-                                  opts)
+            x = _ssm_decode_layer(cfg, layer_params(lp), x,
+                                  layer_of(cache["ssm"], i), opts)
     elif cfg.hybrid_period:
         stacked = _stacked_kinds(params)
         n_per = cfg.n_layers // cfg.hybrid_period
         for i, lp in enumerate(unstack_layers(stacked, n_per)):
+            lp = layer_params(lp)
             x = _attn_decode_layer(cfg, lp["attn"], x, pos,
                                    layer_of(cache["attn"], i), opts)
             for kind in ("ssm_moe", "ssm_dense"):
@@ -543,8 +681,8 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
     else:
         for i, lp in enumerate(unstack_layers(params["attn_layers"],
                                               cfg.n_layers)):
-            x = _attn_decode_layer(cfg, lp, x, pos,
+            x = _attn_decode_layer(cfg, layer_params(lp), x, pos,
                                    layer_of(cache["attn"], i), opts)
-    x = L.rmsnorm(x, params["final_norm"])
+    x = L.rmsnorm(x, gather_fsdp(params["final_norm"]))
     logits = (x @ _head(cfg, params))[:, 0]
     return logits, {**cache, "pos": pos + 1}

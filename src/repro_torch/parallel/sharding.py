@@ -334,6 +334,25 @@ def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.redistribute(x.device_mesh, placements)
 
 
+def gather_fsdp(x: torch.Tensor, tp_axis: str = "model") -> torch.Tensor:
+    """A parameter DTensor with its FSDP shards gathered and its
+    tensor-parallel shard kept (FSDP's gather before a layer runs): a
+    dimension sharded over a mesh axis other than ``tp_axis``, or over
+    ``tp_axis`` together with another (ZeRO-3 over both), is made whole;
+    a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    names = x.device_mesh.mesh_dim_names
+    dims = [p.dim for p in x.placements if p.is_shard()]
+    placements = [p if not p.is_shard() or (names[i] == tp_axis
+                                             and dims.count(p.dim) == 1)
+                  else Replicate() for i, p in enumerate(x.placements)]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
 def local(x: torch.Tensor) -> torch.Tensor:
     """This rank's shard of a DTensor; a plain tensor as it is."""
     return x.to_local() if is_dtensor(x) else x

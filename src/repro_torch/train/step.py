@@ -8,8 +8,8 @@ update. ``make_prefill_step`` returns the full forward to logits and
 
 Parameters may be DTensors (:mod:`repro_torch.parallel.sharding`). The
 model makes plain tensors mid-flight (positions, masks, the aux loss's
-zero), so a step over DTensors runs under DTensor's
-``implicit_replication``, which takes each of them as replicated; its
+zero), so a step over DTensors (train, prefill or serve) runs under
+DTensor's ``implicit_replication``, which takes each of them as replicated; its
 metrics come back as plain tensors.
 """
 from __future__ import annotations
@@ -58,6 +58,11 @@ def _over_dtensors(active: bool):
     return implicit_replication()
 
 
+def _placed(params) -> bool:
+    """Whether any parameter is a DTensor."""
+    return any(sharding.is_dtensor(p) for p in leaves(params))
+
+
 def _full(x: torch.Tensor) -> torch.Tensor:
     return x.full_tensor() if sharding.is_dtensor(x) else x
 
@@ -71,9 +76,7 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions = DEFAULT_OPTIONS,
     api = build_model(cfg, opts)
 
     def train_step(params, opt_state, batch):
-        distributed = grad_specs is not None or any(
-            sharding.is_dtensor(p) for p in leaves(params))
-        with _over_dtensors(distributed):
+        with _over_dtensors(grad_specs is not None or _placed(params)):
             return _step(params, opt_state, batch)
 
     def _step(params, opt_state, batch):
@@ -116,7 +119,8 @@ def make_prefill_step(cfg: ArchConfig,
     api = build_model(cfg, opts)
 
     def prefill_step(params, batch):
-        return api.forward(params, batch)
+        with _over_dtensors(_placed(params)):
+            return api.forward(params, batch)
 
     return prefill_step
 
@@ -126,6 +130,7 @@ def make_serve_step(cfg: ArchConfig,
     api = build_model(cfg, opts)
 
     def serve_step(params, cache, batch):
-        return api.decode_step(params, cache, batch)
+        with _over_dtensors(_placed(params)):
+            return api.decode_step(params, cache, batch)
 
     return serve_step

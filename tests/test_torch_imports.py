@@ -47,7 +47,8 @@ def test_there_is_something_to_check():
             "sweep.py", "executor.py", "degraded.py", "__main__.py",
             "_polling_reference.py", "findings.py", "graph.py", "lint.py",
             "moe.py", "ssm.py", "encdec.py", "sharding.py", "mesh.py",
-            "train.py", "compression.py"} <= names
+            "train.py", "compression.py", "roofline.py", "hlo_diag.py",
+            "dryrun.py"} <= names
     for pkg in ("analyze", "models", "parallel", "launch"):
         assert (PORT / pkg / "__init__.py").exists(), pkg
 
@@ -98,7 +99,8 @@ for name in ("repro_torch.analyze", "repro_torch.analyze.__main__",
              "repro_torch.models.moe", "repro_torch.models.ssm",
              "repro_torch.models.encdec", "repro_torch.parallel.sharding",
              "repro_torch.launch.mesh", "repro_torch.launch.train",
-             "repro_torch.train.compression"):
+             "repro_torch.train.compression", "repro_torch.core.roofline",
+             "repro_torch.core.hlo_diag", "repro_torch.launch.dryrun"):
     assert name in mods, name
 assert "torch.distributed.tensor" not in sys.modules
 print(len(mods))

@@ -65,7 +65,8 @@ def worlds(tmp_path_factory):
     """{n: (reference outputs, [rank outputs])} for 2 and 4 ranks, run
     concurrently."""
     base = tmp_path_factory.mktemp("ranks")
-    jobs = {2: ["ring", "ep", "attention"], 4: ["ring", "ep"]}
+    jobs = {2: ["ring", "ring_grad", "ep", "attention", "attention_rkv"],
+            4: ["ring", "ring_grad", "ep", "fsdp_step", "decode"]}
     with ThreadPoolExecutor(2) as pool:
         futures = {n: pool.submit(ranks.run, jobs[n], n, base / f"w{n}")
                    for n in jobs}
@@ -194,14 +195,52 @@ def test_ring_attention_matches_the_reference_on_n_devices(worlds, n, case):
     np.testing.assert_allclose(got, ref[key], atol=bar, rtol=bar)
 
 
-def test_ring_attention_refuses_autograd(one_rank):
-    q, k, v, pos = ranks.ring_inputs("fp32_causal_gqa")
-    tq = torch.from_numpy(q).requires_grad_()
+def _assert_grads_close(got, want, dtype, what):
+    bar = BAR[dtype]
+    for g in "qkv":
+        np.testing.assert_allclose(got[g], want[g], atol=bar, rtol=bar,
+                                   err_msg=f"{what}: d{g}")
+
+
+@pytest.mark.parametrize("case", sorted(ranks.RING_CASES))
+def test_ring_attention_gradients_on_one_rank_match_jax_grad(one_rank,
+                                                             case):
+    """The ring's backward on one rank (nothing sent) against ``jax.grad``
+    of the reference's ring on one device."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        want = ranks.reference_ring_grad_case(1, case)
+    got = ranks.ring_grad_local(one_rank["cp"], "cp", slice(None), case)
+    _assert_grads_close(got, want, ranks.RING_CASES[case][0], case)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("case", sorted(ranks.RING_CASES))
+def test_ring_attention_gradients_match_jax_grad_on_n_devices(worlds, n,
+                                                              case):
+    """dQ stays on its rank; dK and dV come back round the ring to the
+    rank that owns their shard: each rank's gradients, concatenated over
+    the sequence, equal the reference's ``jax.grad`` on n devices."""
+    ref, outs = worlds[n]
+    got = {g: np.concatenate([o[f"ring_grad/{case}/{g}"] for o in outs],
+                             axis=1) for g in "qkv"}
+    want = {g: ref[f"ring_grad/{case}/{g}"] for g in "qkv"}
+    _assert_grads_close(got, want, ranks.RING_CASES[case][0], case)
+
+
+def test_ring_attention_forward_is_unchanged_under_autograd(one_rank):
+    """With gradients on, the ring's output is the same bits as without."""
+    q, k, v, pos = ranks.ring_inputs("bf16_causal_gqa")
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     tp = torch.from_numpy(pos)
-    with sh.use_mesh(one_rank["cp"]), pytest.raises(RuntimeError,
-                                                    match="no backward"):
-        L.ring_attention(tq, torch.from_numpy(k), torch.from_numpy(v), tp,
-                         tp, "cp")
+    with sh.use_mesh(one_rank["cp"]):
+        with torch.no_grad():
+            plain = L.ring_attention(tq, tk, tv, tp, tp, "cp", True, None,
+                                     8, 8)
+        graded = L.ring_attention(tq.requires_grad_(), tk, tv, tp, tp, "cp",
+                                  True, None, 8, 8)
+    assert graded.grad_fn is not None
+    assert torch.equal(graded.detach(), plain)
 
 
 def test_ring_attention_needs_a_mesh():
@@ -420,28 +459,130 @@ def test_attention_with_heads_sharded_over_two_ranks(worlds, impl):
                                    rtol=1e-6)
 
 
-def test_attention_refuses_a_sharded_sequence():
-    class SeqSharded:
+@pytest.mark.parametrize("impl", ["naive", "flash_torch"])
+def test_attention_with_the_sequence_sharded_over_two_ranks(worlds, impl):
+    """Context parallelism by an all-gather (the ``fsdp_cp`` mapping's
+    layout): each rank's queries attend to the whole K/V at their
+    absolute positions; output and q, k, v gradients equal the plain
+    call's on every rank."""
+    _, outs = worlds[2]
+    key = f"attention/{impl}/seq"
+    for o in outs:
+        np.testing.assert_allclose(o[f"{key}/got"],
+                                   o[f"attention/{impl}/want"],
+                                   atol=BAR["float32"], rtol=BAR["float32"])
+        for g in "qkv":
+            np.testing.assert_allclose(o[f"{key}/grad_{g}"],
+                                       o[f"{key}/want_{g}"],
+                                       atol=BAR["float32"],
+                                       rtol=BAR["float32"], err_msg=g)
+
+
+@pytest.mark.parametrize("impl", ["naive", "flash_torch"])
+def test_sequence_sharded_attention_matches_the_reference(worlds, impl):
+    """The same context-parallel call against the reference's attention
+    with the sequence placed over ``model`` on two devices (XLA
+    partitions it): output and q, k, v gradients on every rank."""
+    ref, outs = worlds[2]
+    key = f"attention/{impl}/seq"
+    for o in outs:
+        np.testing.assert_allclose(o[f"{key}/got"], ref[f"{key}/ref"],
+                                   atol=BAR["float32"], rtol=BAR["float32"])
+        for g in "qkv":
+            np.testing.assert_allclose(o[f"{key}/grad_{g}"],
+                                       ref[f"{key}/ref_{g}"],
+                                       atol=BAR["float32"],
+                                       rtol=BAR["float32"], err_msg=g)
+
+
+@pytest.mark.parametrize("impl", ["naive", "flash_torch"])
+def test_attention_with_one_kv_head_for_two_ranks(worlds, impl):
+    """Four query heads over two ranks read one KV head, which no rank
+    split can share out: K and V stay whole on each rank, each rank
+    attends with the KV head of its query heads, and the K/V gradients
+    are summed over the ranks. Output and gradients equal the plain
+    call's on every rank."""
+    _, outs = worlds[2]
+    key = f"attention_rkv/{impl}"
+    for o in outs:
+        np.testing.assert_allclose(o[f"{key}/got"], o[f"{key}/want"],
+                                   atol=BAR["float32"], rtol=BAR["float32"])
+        for g in "qkv":
+            np.testing.assert_allclose(o[f"{key}/grad_{g}"],
+                                       o[f"{key}/want_{g}"],
+                                       atol=BAR["float32"],
+                                       rtol=BAR["float32"], err_msg=g)
+
+
+@pytest.mark.parametrize("impl", ["naive", "flash_torch"])
+def test_fsdp_step_on_a_2x2_mesh_equals_the_plain_step(worlds, impl):
+    """The smoke qwen2 step over four gloo ranks, ``embed`` placed
+    ``P("model", "data")`` (vocabulary over ``model``, d over ``data``):
+    the lookup gathers the table's FSDP shard first, so it runs, and the
+    loss is the plain step's to one fp32 ulp, the gradient norm equal."""
+    _, outs = worlds[4]
+    for o in outs:
+        key = f"fsdp_step/{impl}"
+        assert set(o[f"{key}/embed_placements"]) == {"S(0)", "S(1)"}
+        want = o[f"{key}/want_loss"]
+        assert abs(o[f"{key}/loss"] - want) <= np.spacing(want)
+        assert o[f"{key}/grad_norm"] == o[f"{key}/want_grad_norm"]
+
+
+@pytest.mark.parametrize("name", sorted(ranks.DECODE_MESHES))
+def test_decode_on_a_placed_cache_equals_the_plain_decode(worlds, name):
+    """Greedy decode with the parameters and the KV cache placed over
+    four ranks (the cache's sequence split where ``cache_specs`` splits
+    it, attended in parts and combined) gives the plain decode's logits
+    at every step (fp32, 1e-5: the parts change the sums' order; bf16
+    at its bar: each part's output is rounded to bf16 before the sum)."""
+    _, outs = worlds[4]
+    bar = {"float32": 1e-5, "bfloat16": BAR["bfloat16"]}[
+        ranks.DECODE_MESHES[name][2]]
+    for o in outs:
+        key = f"decode/{name}"
+        assert bool(o[f"{key}/seq_sharded"]) == name.startswith("seq")
+        np.testing.assert_allclose(o[f"{key}/got"], o[f"{key}/want"],
+                                   atol=bar, rtol=bar)
+
+
+@pytest.mark.parametrize("arch", ranks.FSDP_FAMILIES + ("fsdp_cp",))
+def test_fsdp_step_of_each_family_on_a_2x2_mesh(worlds, arch):
+    """The SSM family (its block on each rank's batch shard, weights
+    whole), the audio enc-dec, the VLM, and qwen2 under the ``fsdp_cp``
+    mapping (the sequence over ``model``, weights whole, K/V gathered):
+    loss and gradient norm within two fp32 ulps of the plain step's (a
+    shard's products sum in another order than the whole batch's)."""
+    _, outs = worlds[4]
+    for o in outs:
+        for k in ("loss", "grad_norm"):
+            want = o[f"fsdp_step/{arch}/want_{k}"]
+            assert abs(o[f"fsdp_step/{arch}/{k}"] - want) \
+                <= 2 * np.spacing(want), k
+
+
+def test_attention_refuses_a_sharded_head_dim():
+    class HeadDimSharded:
         def is_partial(self):
             return False
 
         def is_shard(self, dim=None):
-            return dim is None or dim == 1
+            return dim is None or dim == 3
 
-        dim = 1
+        dim = 3
 
     class Mesh:
-        mesh_dim_names = ("cp",)
+        mesh_dim_names = ("model",)
 
         def size(self, i=None):
             return 2
 
     class Q:
         device_mesh = Mesh()
-        placements = (SeqSharded(),)
+        placements = (HeadDimSharded(),)
         shape = (2, 8, 4, 16)
 
-    with pytest.raises(ValueError, match="batch and heads only"):
+    with pytest.raises(ValueError, match="batch, sequence and heads only"):
         L._sharded_attention(Q(), Q(), Q(), None, None, True, None,
                              L.ModelOptions())
 

@@ -17,6 +17,9 @@ Jobs (each keyed ``<job>/...`` in the outputs):
 
 * ``ring``: ring attention over a ``("cp",)`` mesh, every case of
   :data:`RING_CASES`, sequence sharded evenly;
+* ``ring_grad``: the gradients of ``sum(out · ct)`` with respect to q,
+  k and v of ring attention, every case of :data:`RING_CASES` (the
+  reference's by ``jax.grad``), each rank's shards;
 * ``ep``: the expert-parallel MoE over each (data, model) mesh of
   :func:`ep_meshes`, y and aux, and on (1, 2) the gradients of
   ``sum(y²) + 0.01·aux``;
@@ -25,8 +28,20 @@ Jobs (each keyed ``<job>/...`` in the outputs):
 * ``placements``: each spec of :data:`PLACEMENT_SPECS` on a (2, 2) mesh:
   the port's local shard against the slice JAX's ``NamedSharding``
   gives the device at the same mesh position;
-* ``attention``: the model's attention on DTensors with heads sharded
-  over a 2-rank ``model`` axis, against the plain call (port only).
+* ``attention``: the model's attention on DTensors with heads, then the
+  sequence, sharded over a 2-rank ``model`` axis, against the plain call
+  (port only; the sequence case with its gradients); also
+  with one KV head for four query heads, which stays whole on each rank,
+  and its gradients;
+* ``decode``: six greedy decode steps of the smoke qwen2_1_5b from an
+  empty cache, parameters (FSDP over ``data``) and cache placed by
+  ``param_specs`` / ``cache_specs(seq_axis="data")`` on each mesh of
+  :data:`DECODE_MESHES`, against the plain steps (port only);
+* ``fsdp_step``: the smoke qwen2_1_5b train step on a (2, 2) mesh, the
+  parameters placed by ``param_specs(fsdp_axes="data")``, the moments by
+  ``zero1_specs``, the batch over ``data``, against the plain step; the
+  steps of :data:`FSDP_FAMILIES` likewise; and the qwen2 step under the
+  dry run's ``fsdp_cp`` mapping (port only).
 """
 import os
 import pathlib
@@ -53,6 +68,14 @@ RING_CASES = {
     "bf16_window": ("bfloat16", True, 8, 1),
 }
 RING_SHAPE = dict(b=2, s=64, h=4, hd=16, block=8)
+
+
+def ring_cotangent(name):
+    """The seeded fp32 weights ``ct`` of the ring's gradient loss
+    ``sum(out · ct)``, shaped like the output."""
+    b, s, h, hd = (RING_SHAPE[k] for k in ("b", "s", "h", "hd"))
+    rng = np.random.default_rng(50 + sorted(RING_CASES).index(name))
+    return rng.standard_normal((b, s, h, hd), dtype=np.float32)
 
 
 def ring_inputs(name):
@@ -159,6 +182,37 @@ def port_ring(rank, world):
     return out
 
 
+def ring_grad_local(mesh, axis, own, name):
+    """This rank's gradients of ``sum(out · ct)`` by ring attention over
+    ``axis`` of ``mesh``, q, k and v its sequence shard ``own``."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as sh
+    dtype, causal, window, _ = RING_CASES[name]
+    q, k, v, pos = ring_inputs(name)
+    dt = _torch_dtype(dtype)
+    q, k, v = (torch.from_numpy(a[:, own]).to(dt).requires_grad_()
+               for a in (q, k, v))
+    pos = torch.from_numpy(pos[:, own])
+    ct = torch.from_numpy(ring_cotangent(name)[:, own])
+    with sh.use_mesh(mesh):
+        o = L.ring_attention(q, k, v, pos, pos, axis, causal, window,
+                             RING_SHAPE["block"], RING_SHAPE["block"])
+    (o.float() * ct).sum().backward()
+    return {f"{g}": t.grad.float().numpy() for g, t in
+            zip("qkv", (q, k, v))}
+
+
+def port_ring_grad(rank, world):
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("cp",))
+    s_loc = RING_SHAPE["s"] // world
+    own = slice(rank * s_loc, (rank + 1) * s_loc)
+    return {f"ring_grad/{name}/{g}": a for name in RING_CASES
+            for g, a in ring_grad_local(mesh, "cp", own, name).items()}
+
+
 def _moe_port(mesh, x, arrays, grad):
     """y, aux (and this rank's gradients) of the port's ep_a2a with x and
     the weights placed as the layout contract asks."""
@@ -262,11 +316,240 @@ def port_attention(rank, world):
             got.to_local().shape[2])
         out[f"attention/{impl}/got"] = got.full_tensor().numpy()
         out[f"attention/{impl}/want"] = want.numpy()
+        # the sequence over ``model`` (context parallelism): each rank's
+        # queries against the whole K/V, gradients summed over the ranks
+        leaves = [torch.from_numpy(a.numpy()).requires_grad_()
+                  for a in (q, k, v)]
+        seq = sh.P(None, "model", None, None)
+        got = L.attention(*(sh.distribute(t, seq, mesh) for t in leaves),
+                          sh.distribute(pos, sh.P(None, "model"), mesh),
+                          pos, window=8, opts=opts)
+        ct = torch.from_numpy(ring_cotangent("fp32_causal_gqa"))
+        (got.to_local() * ct.chunk(world, 1)[rank]).sum().backward()
+        plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        (L.attention(*plain, pos, pos, window=8, opts=opts) * ct).sum() \
+            .backward()
+        out[f"attention/{impl}/seq/got"] = got.full_tensor().detach().numpy()
+        for g, t, w in zip("qkv", leaves, plain):
+            out[f"attention/{impl}/seq/grad_{g}"] = t.grad.numpy()
+            out[f"attention/{impl}/seq/want_{g}"] = w.grad.numpy()
     return out
 
 
-PORT_JOBS = {"ring": port_ring, "ep": port_ep, "psum": port_psum,
-             "placements": port_placements, "attention": port_attention}
+def port_attention_replicated_kv(rank, world):
+    """Four query heads over the 2-rank ``model`` axis and one KV head
+    (placed whole on both ranks): output and q, k, v gradients of
+    ``sum(out · ct)`` against the plain call's."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as sh
+    mesh = init_device_mesh("cpu", (1, world),
+                            mesh_dim_names=("data", "model"))
+    q, k, v, pos = ring_inputs("fp32_causal_gqa")
+    k, v = k[:, :, :1], v[:, :, :1]
+    ct = torch.from_numpy(ring_cotangent("fp32_causal_gqa"))
+    pos = torch.from_numpy(pos)
+    out = {}
+    for impl in ("naive", "flash_torch"):
+        opts = L.ModelOptions(dtype=torch.float32, attn_impl=impl,
+                              block_q=8, block_kv=8)
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        want = L.attention(*leaves, pos, pos, window=8, opts=opts)
+        (want * ct).sum().backward()
+        wants = [t.grad.numpy() for t in leaves]
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        placed = [sh.distribute(leaves[0], sh.P(None, None, "model", None),
+                                mesh)] + [sh.distribute(t, sh.P(), mesh)
+                                          for t in leaves[1:]]
+        got = L.attention(*placed, pos, pos, window=8, opts=opts)
+        (got.to_local() * ct.chunk(world, 2)[rank]).sum().backward()
+        key = f"attention_rkv/{impl}"
+        out[f"{key}/got"] = got.full_tensor().detach().numpy()
+        out[f"{key}/want"] = want.detach().numpy()
+        for g, t, w in zip("qkv", leaves, wants):
+            out[f"{key}/grad_{g}"] = t.grad.numpy()
+            out[f"{key}/want_{g}"] = w
+    return out
+
+
+#: (data, model) mesh, batch and dtype of the ``decode`` job: the
+#: cache's sequence over ``model`` (in fp32 and bf16); batch over
+#: ``data`` and KV heads over ``model``; the sequence over ``data``
+#: beside the heads over ``model``
+DECODE_MESHES = {"seq_model": ((1, 4), 2, "float32"),
+                 "seq_model_bf16": ((1, 4), 2, "bfloat16"),
+                 "batch_heads": ((2, 2), 2, "float32"),
+                 "seq_data_heads": ((2, 2), 1, "float32")}
+DECODE_STEPS, DECODE_SEQ = 6, 32
+
+
+def port_decode(rank, world):
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.step import make_serve_step
+    cfg = smoke_config(get_config("qwen2_1_5b"))
+    out = {}
+    for name, (shape, b, dtype) in DECODE_MESHES.items():
+        opts = ModelOptions(dtype=_torch_dtype(dtype))
+        api = build_model(cfg, opts)
+        params = api.init(torch.Generator().manual_seed(0), "cpu")
+        step = make_serve_step(cfg, opts)
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        bax = ("data",)
+        cache = api.init_cache(b, DECODE_SEQ, "cpu")
+        dcache = sh.distribute_tree(cache, sh.cache_specs(
+            cache, mesh, bax, seq_axis="data"), mesh)
+        dparams = sh.distribute_tree(params, sh.param_specs(
+            params, mesh, fsdp_axes="data"), mesh)
+        tok = torch.arange(b, dtype=torch.int32)[:, None] + 3
+        dtok = tok
+        got, want = [], []
+        for _ in range(DECODE_STEPS):
+            logits, cache = step(params, cache, {"tokens": tok})
+            with sh.use_mesh(mesh):
+                dlogits, dcache = step(dparams, dcache, {"tokens": dtok})
+            want.append(logits.float().numpy())
+            got.append(dlogits.full_tensor().float().numpy())
+            tok = dtok = logits.argmax(-1).to(torch.int32)[:, None]
+        out[f"decode/{name}/got"] = np.stack(got)
+        out[f"decode/{name}/want"] = np.stack(want)
+        out[f"decode/{name}/seq_sharded"] = np.array(any(
+            p.is_shard(2) for p in dcache["attn"]["k"].placements))
+    return out
+
+
+def port_fsdp_step(rank, world):
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    mesh = init_device_mesh("cpu", (2, world // 2),
+                            mesh_dim_names=("data", "model"))
+    cfg = smoke_config(get_config("qwen2_1_5b"))
+    out = {}
+    for impl in ("naive", "flash_torch"):
+        opts = ModelOptions(dtype=torch.float32, attn_impl=impl,
+                            block_q=16, block_kv=16, remat=True)
+        params = build_model(cfg, opts).init(
+            torch.Generator().manual_seed(0), "cpu")
+        state = opt.init(params)
+        toks = torch.randint(0, cfg.vocab, (2, 40), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+        _, _, want = make_train_step(cfg, opts)(params, state, batch)
+        pspecs = sh.param_specs(params, mesh, fsdp_axes="data")
+        ospecs = sh.zero1_specs(state, opt.state_specs(pspecs), mesh)
+        step = make_train_step(cfg, opts, grad_specs=pspecs)
+        with sh.use_mesh(mesh):
+            got_p, _, got = step(
+                sh.distribute_tree(params, pspecs, mesh),
+                sh.distribute_tree(state, ospecs, mesh),
+                sh.distribute_tree(batch, sh.batch_specs(
+                    batch, mesh, ("data",)), mesh))
+        out[f"fsdp_step/{impl}/embed_placements"] = np.array(
+            [str(p) for p in got_p["embed"].placements])
+        for k in ("loss", "grad_norm"):
+            out[f"fsdp_step/{impl}/{k}"] = got[k].numpy()
+            out[f"fsdp_step/{impl}/want_{k}"] = want[k].numpy()
+    for arch in FSDP_FAMILIES:
+        out.update(_fsdp_family_step(mesh, arch))
+    out.update(_fsdp_cp_step(mesh))
+    return out
+
+
+def _fsdp_cp_step(mesh):
+    """The smoke qwen2 step under the dry run's ``fsdp_cp`` mapping: no
+    tensor parallelism, the sequence over ``model`` (context
+    parallelism), ZeRO-3 over both axes; against the plain step."""
+    import torch
+
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    cfg = smoke_config(get_config("qwen2_1_5b"))
+    plain = ModelOptions(dtype=torch.float32, attn_impl="flash_torch",
+                         block_q=16, block_kv=16, remat=True)
+    cp = ModelOptions(**{**plain.__dict__,
+                         "act_spec": sh.P("data", "model", None),
+                         "qkv_spec": sh.P("data", "model", None, None),
+                         "kv_spec": sh.P("data", "model", None, None)})
+    params = build_model(cfg, plain).init(torch.Generator().manual_seed(0),
+                                          "cpu")
+    state = opt.init(params)
+    toks = torch.randint(0, cfg.vocab, (2, 40), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    _, _, want = make_train_step(cfg, plain)(params, state, batch)
+    pspecs = sh.param_specs(params, mesh, model_axis="__no_tp__",
+                            fsdp_axes=("data", "model"))
+    step = make_train_step(cfg, cp, grad_specs=pspecs)
+    with sh.use_mesh(mesh):
+        _, _, got = step(sh.distribute_tree(params, pspecs, mesh),
+                         sh.distribute_tree(state, opt.state_specs(pspecs),
+                                            mesh),
+                         sh.distribute_tree(batch, sh.batch_specs(
+                             batch, mesh, ("data",)), mesh))
+    return {f"fsdp_step/fsdp_cp/{w}{k}": m[k].numpy()
+            for w, m in (("", got), ("want_", want))
+            for k in ("loss", "grad_norm")}
+
+
+#: the other families' smoke steps of the ``fsdp_step`` job (naive
+#: attention): the SSM block on batch shards, the enc-dec and the VLM
+FSDP_FAMILIES = ("mamba2_2_7b", "whisper_tiny", "qwen2_vl_72b")
+
+
+def _fsdp_family_step(mesh, arch):
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig, get_config, smoke_config
+    from repro_torch.models.api import build_model, make_batch
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    cfg = smoke_config(get_config(arch))
+    opts = ModelOptions(dtype=torch.float32, attn_impl="naive", remat=True)
+    params = build_model(cfg, opts).init(torch.Generator().manual_seed(0),
+                                         "cpu")
+    state = opt.init(params)
+    batch = make_batch(cfg, ShapeConfig("fsdp", 64, 2, "train"),
+                       torch.Generator().manual_seed(1), "cpu", opts)
+    _, _, want = make_train_step(cfg, opts)(params, state, batch)
+    pspecs = sh.param_specs(params, mesh, fsdp_axes="data")
+    ospecs = sh.zero1_specs(state, opt.state_specs(pspecs), mesh)
+    step = make_train_step(cfg, opts, grad_specs=pspecs)
+    with sh.use_mesh(mesh):
+        _, _, got = step(sh.distribute_tree(params, pspecs, mesh),
+                         sh.distribute_tree(state, ospecs, mesh),
+                         sh.distribute_tree(batch, sh.batch_specs(
+                             batch, mesh, ("data",)), mesh))
+    return {f"fsdp_step/{arch}/{w}{k}": m[k].numpy()
+            for w, m in (("", got), ("want_", want))
+            for k in ("loss", "grad_norm")}
+
+
+PORT_JOBS = {"ring": port_ring, "ring_grad": port_ring_grad, "ep": port_ep,
+             "psum": port_psum, "placements": port_placements, "attention": port_attention,
+             "attention_rkv": port_attention_replicated_kv,
+             "decode": port_decode,
+             "fsdp_step": port_fsdp_step}
 
 
 def rank_main(jobs, rank, world, store, out_path):
@@ -318,6 +601,39 @@ def reference_ring(n):
             o = jax.jit(f)(q, k, v, jnp.asarray(pos))
         out[f"ring/{name}"] = np.asarray(o.astype(jnp.float32))
     return out
+
+
+def reference_ring_grad_case(n, name):
+    """``jax.grad`` of ``sum(out · ct)`` with respect to q, k, v of the
+    reference's ring under ``shard_map`` on ``n`` devices."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.models import layers as R
+    dtype, causal, window, _ = RING_CASES[name]
+    q, k, v, pos = ring_inputs(name)
+    q, k, v = (jnp.asarray(a).astype(_jnp_dtype(dtype)) for a in (q, k, v))
+    ct = jnp.asarray(ring_cotangent(name))
+    blk = RING_SHAPE["block"]
+    mesh = jax.make_mesh((n,), ("cp",))
+    f = jax.shard_map(
+        lambda q, k, v, p: R.ring_attention(q, k, v, p, p, "cp", causal,
+                                            window, blk, blk),
+        mesh=mesh, in_specs=(JP(None, "cp"),) * 4, out_specs=JP(None, "cp"))
+
+    def loss(q, k, v):
+        return (f(q, k, v, jnp.asarray(pos)).astype(jnp.float32) * ct).sum()
+
+    with jax.set_mesh(mesh):
+        grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(q, k, v)
+    return {g: np.asarray(t.astype(jnp.float32))
+            for g, t in zip("qkv", grads)}
+
+
+def reference_ring_grad(n):
+    return {f"ring_grad/{name}/{g}": a for name in RING_CASES
+            for g, a in reference_ring_grad_case(n, name).items()}
 
 
 def reference_moe(mesh_shape, x, arrays, grad):
@@ -398,7 +714,51 @@ def reference_placements(n):
     return out
 
 
-REFERENCE_JOBS = {"ring": reference_ring, "ep": reference_ep,
+def reference_attention(n):
+    """The reference's attention with q, k, v and the query positions
+    placed sequence-over-``model`` on a (1, n) mesh, XLA partitioning
+    it, and ``jax.grad`` of ``sum(out · ct)``: what the port's
+    context-parallel attention (``port_attention``'s ``seq`` half) is
+    held to. Naive and blockwise (``flash_jnp``, the port's
+    ``flash_torch``), blocks of 8, window 8."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.models import layers as R
+    mesh = jax.make_mesh((1, n), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    q, k, v, pos = ring_inputs("fp32_causal_gqa")
+    ct = jnp.asarray(ring_cotangent("fp32_causal_gqa"))
+    seq = NamedSharding(mesh, JP(None, "model", None, None))
+    args = [jax.device_put(jnp.asarray(a), seq) for a in (q, k, v)]
+    args += [jax.device_put(jnp.asarray(pos),
+                            NamedSharding(mesh, JP(None, "model"))),
+             jnp.asarray(pos)]
+    out = {}
+    for impl, ref_impl in (("naive", "naive"), ("flash_torch", "flash_jnp")):
+        opts = R.ModelOptions(dtype=jnp.float32, attn_impl=ref_impl,
+                              block_q=8, block_kv=8)
+
+        def f(q, k, v, q_pos, k_pos, opts=opts):
+            return R.attention(q, k, v, q_pos, k_pos, window=8, opts=opts)
+
+        def loss(*a, f=f):
+            return (f(*a) * ct).sum()
+
+        with jax.set_mesh(mesh):
+            o = jax.jit(f)(*args)
+            grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*args)
+        key = f"attention/{impl}/seq"
+        out[f"{key}/ref"] = np.asarray(o)
+        for g, t in zip("qkv", grads):
+            out[f"{key}/ref_{g}"] = np.asarray(t)
+    return out
+
+
+REFERENCE_JOBS = {"ring": reference_ring, "ring_grad": reference_ring_grad,
+                  "attention": reference_attention, "ep": reference_ep,
                   "psum": reference_psum,
                   "placements": reference_placements}
 
