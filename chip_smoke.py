@@ -105,13 +105,19 @@ Around that it
   (1/3, 3);
 * holds the card to the CPU on one fp32 train step (TF32 off) of the
   model cut to 2 layers: loss at rtol 1e-5, gradient norm at 1e-4, each
-  gradient leaf within 2e-5 x its max |g|.
+  gradient leaf within 2e-5 x its max |g|;
+* the dry run: the ring attention's backward on one NCCL rank against
+  ``flash_torch``'s, the roofline held to the train phase's measured
+  step, and each of ``DRYRUN_CELLS`` traced at full width on 256 or 512
+  fake ranks in a child process, gated on its three roofline counts
+  > 0 and, where ``DRYRUN_REFERENCE_FLOPS`` has the reference's count,
+  on its FLOPs a device within 10 % of it.
 
 Every phase prints one JSON object on a line of its own (``env``,
 ``build``, then ``kernels``, ``profile``, ``model``, ``serve``,
 ``search``, ``degraded``, ``analyze``, ``families``, ``parallel``,
 ``train``,
-``loop_check``, ``train_check``);
+``loop_check``, ``train_check``, ``dryrun``);
 then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises: the run exits non-zero and
@@ -2461,6 +2467,88 @@ def k2_cross(fa, captured) -> dict:
                          "achieved_tflops": flops / ms / 1e9}}
 
 
+#: K2's causal and windowed calls with Sq != Sk, positions aligned
+#: top-left: (Sq, Sk, causal, window). Four shapes, shorter and longer
+#: queries, then one whose windowed rows q >= Sk - 1 + window see no key
+#: (as do those of (72, 40, False, 8)); Sk = 200 pads to 256 keys
+K2_LENGTH_CASES = ((40, 72, True, None), (72, 40, True, None),
+                   (72, 40, False, 8), (40, 72, True, 16),
+                   (300, 200, True, 16))
+#: the full-width causal case at h2o's heads: q over twice as many keys
+K2_LONG = dict(b=2, sq=4096, sk=8192, h=32, kh=8, hd=80)
+
+
+def k2_lengths(fa) -> dict:
+    """K2 on causal and windowed attention with Sq != Sk: each case of
+    K2_LENGTH_CASES at hd 64 and 80, in bf16 on the tensor cores (two
+    bf16 ulps) and in fp32 on the scalar kernel (2e-5, TF32 off),
+    against the plain version; then K2_LONG the same way, its bf16 call
+    timed beside ``scaled_dot_product_attention`` with the same
+    top-left causal band as ``attn_mask`` (the times ungated)."""
+    cases = []
+    for sq, sk, causal, window in K2_LENGTH_CASES:
+        empty = max(0, sq - (sk - 1 + window)) if window else 0
+        for hd in (64, 80):
+            for dtype in (torch.bfloat16, torch.float32):
+                g = torch.Generator("cuda").manual_seed(7 * sq + sk + hd)
+                q = torch.randn((1, sq, 8, hd), generator=g,
+                                device="cuda").to(dtype)
+                k, v = (torch.randn((1, sk, 2, hd), generator=g,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                tc = dtype == torch.bfloat16
+                e = check_k2_case(fa, q, k, v, causal, window, tc)
+                cases.append({"sq": sq, "sk": sk, "causal": causal,
+                              "window": window, "empty_rows": empty,
+                              "heads": 8, "kv_heads": 2, "head_dim": hd,
+                              "dtype": str(dtype).split(".")[-1],
+                              "variant": "tensor_cores" if tc
+                              else "scalar", "max_abs_err": e})
+    b, sq, sk, h, kh, hd = (K2_LONG[n] for n in
+                            ("b", "sq", "sk", "h", "kh", "hd"))
+    g = torch.Generator("cuda").manual_seed(21)
+    q = torch.randn((b, sq, h, hd), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((b, sk, kh, hd), generator=g,
+                        device="cuda").bfloat16() for _ in range(2))
+    err = check_k2_case(fa, q, k, v, True, None, True)
+    err32 = check_k2_case(fa, q.float(), k.float(), v.float(), True, None,
+                          False)
+
+    def kernel():
+        return fa.flash_attention_cuda(q, k, v, causal=True)
+
+    out = kernel()
+    ms = timed_ms(kernel, reps=10)
+    i = torch.arange(sq, device="cuda")[:, None]
+    band = i >= torch.arange(sk, device="cuda")[None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+    library_err = max_abs_diff(library().transpose(1, 2).float(),
+                               out.float())
+    library_ms = timed_ms(library, reps=10)
+    flops = 4 * hd * band_pairs(sq, sk, True, None) * b * h
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"cases": cases, "tolerance": {"bfloat16": K2_BF16_TOL,
+                                          "float32": K2_FP32_TOL},
+            "long": {"q": [b, sq, h, hd], "k": [b, sk, kh, hd],
+                     "causal": True, "window": None, "max_abs_err": err,
+                     "fp32_max_abs_err": err32, "ms": ms,
+                     "library_ms": library_ms,
+                     "library": "scaled_dot_product_attention(attn_mask="
+                                "top-left causal band, enable_gqa=True)",
+                     "library_max_abs_err": library_err,
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes",
+                     "achieved_tflops": flops / ms / 1e9}}
+
+
 # --------------------------------------------------------------------------
 # the parallel layer on one NCCL rank
 # --------------------------------------------------------------------------
@@ -2861,12 +2949,29 @@ def phase_parallel(mesh, ep_row) -> dict:
 # fake process group, each in a child process of its own, all at once;
 # (arch, shape, mesh, layers): qwen3_moe's prefill_32k is cut to 4 of its
 # 48 layers (its flash_torch loops over ~1 000 live block pairs a layer
-# in Python: ~11 s a layer on a CPU core), the rest are traced whole
+# in Python: ~11 s a layer on a CPU core) and mamba2's train_4k to 16 of
+# its 64 (the trace grows with the depth), the rest are traced whole.
+# The decode cells run the MoE's gather and the enc-dec's cross-attention
+# on DTensors (whisper's 6 heads over 16 ranks), mamba2 its SSM blocks
+# split over `model` by heads, t5 one attention head a rank.
 DRYRUN_CELLS = (("h2o_danube_1_8b", "train_4k", "single", None),
                 ("h2o_danube_1_8b", "train_4k", "multi", None),
                 ("qwen3_moe_30b_a3b", "prefill_32k", "single", 4),
-                ("mistral_large_123b", "decode_32k", "single", None))
+                ("mistral_large_123b", "decode_32k", "single", None),
+                ("qwen3_moe_30b_a3b", "decode_32k", "single", 2),
+                ("whisper_tiny", "decode_32k", "single", None),
+                ("mamba2_2_7b", "train_4k", "single", 16),
+                ("t5_large", "train_4k", "single", None))
 DRYRUN_TIMEOUT = 600
+#: per-device FLOPs of cells of DRYRUN_CELLS as the reference's own dry
+#: run counts them (``repro.launch.dryrun``, XLA's ``hlo_stats``, on
+#: 16 x 16 at the same depth), and the port's trace on the CPU with
+#: torch 2.13 too; ``tests/test_torch_dryrun_sweep.py`` holds the two at
+#: one layer. Held here within DRYRUN_FLOPS_TOL on the card's torch,
+#: whose DTensor chooses other strategies.
+DRYRUN_REFERENCE_FLOPS = {("qwen3_moe_30b_a3b", "decode_32k"): 3022782464,
+                          ("whisper_tiny", "decode_32k"): 477911040}
+DRYRUN_FLOPS_TOL = 0.10
 # the roofline held to the train phase's measured step (its model,
 # batch and options): traced FLOPs == FlopCounterMode's, the predicted
 # peak within 10 % of max_memory_allocated, the bound <= the median step
@@ -2916,8 +3021,17 @@ def finish_dryrun_cells(started) -> list:
             fields = dict(zip(header.split(","), row.split(",")))
             terms = [float(fields[k]) for k in
                      ("t_compute_ms", "t_memory_ms", "t_coll_ms")]
-            check(all(t > 0 for t in terms),
+            # each term is its count over a rate: gated on the counts,
+            # as the CSV rounds a decode cell's terms to 0.000 ms
+            counts = [float(fields[k]) for k in
+                      ("hlo_flops/dev", "hlo_bytes/dev", "coll_bytes/dev")]
+            check(all(c > 0 for c in counts),
                   f"{arch}/{shape}/{pods}: a roofline term is not > 0: {row}")
+            want = DRYRUN_REFERENCE_FLOPS.get((arch, shape))
+            check(want is None
+                  or abs(counts[0] - want) <= DRYRUN_FLOPS_TOL * want,
+                  f"{arch}/{shape}/{pods}: {counts[0]:.4e} FLOPs a device, "
+                  f"the reference's {want}")
             traced = re.search(r"trace ([\d.]+)s", stdout)
             peak = re.search(r"memory: peak (\S+) B, arguments (\S+) B",
                              stdout)
@@ -2927,6 +3041,10 @@ def finish_dryrun_cells(started) -> list:
                          "layers_full": port_config(arch).n_layers,
                          "row": row, "t_compute_ms": terms[0],
                          "t_memory_ms": terms[1], "t_coll_ms": terms[2],
+                         "flops_per_device": counts[0],
+                         "reference_flops_per_device": want,
+                         "bytes_per_device": counts[1],
+                         "collective_bytes_per_device": counts[2],
                          "dominant": fields["dominant"],
                          "peak_bytes_per_device": float(peak.group(1)),
                          "argument_bytes": float(peak.group(2)),
@@ -3155,6 +3273,8 @@ def main() -> int:
                                                              mesh)
         log("kernels: K2 on cross-attention (Sq != Sk)")
         k2["cross"] = k2_cross(fa, t5_attention)
+        log("kernels: K2 on causal and windowed calls with Sq != Sk")
+        k2["lengths"] = k2_lengths(fa)
         k2["families"] = {
             row["arch"]: {"k2": row["prefill"]["k2_launches"],
                           "k2_tc": row["prefill"]["k2_tc_launches"],

@@ -1,10 +1,11 @@
 // Forward flash attention for Hopper (sm_90a) on the model's (B, S, H, hd)
-// layout with grouped-query KV heads, causal and sliding-window masks.
+// layout with grouped-query KV heads, causal and sliding-window masks;
+// Sk may differ from Sq in any call (positions aligned top-left).
 //
 // Replaces the TPU kernel `flash_attention_bh` / `_flash_kernel` of the
 // reference package (kernels/flash_attention.py), reached from the
 // model through `ops.flash_attention`. For each query row q and key k
-// (positions are the row indices, 0..S-1):
+// (positions are the row indices, 0..Sq-1 and 0..Sk-1):
 //
 //     s      = (q . k) * hd^-0.5                     in fp32
 //     valid  = k < Sk  &  (!causal | k <= q)  &  (window | q - k < window)
@@ -17,6 +18,15 @@
 // and no bf16 rounding of P). It serves fp32 inputs and the bf16 inputs
 // the tensor-core kernel (flash_attention_tc.cu) does not take; the
 // Python wrapper's `uses_tensor_cores` decides which, before the launch.
+//
+// A row with no valid key (windowed, Sq > Sk, q >= Sk - 1 + window) gets
+// the reference's value: its -1e30 fill weighs every slot of the padded
+// key range 1, so the row is sum_{k<Sk} v[k] / (Sk + pk), pk the zero
+// rows padding Sk to whole blocks of min(128, max(8, Sk)). Its l is 0
+// here: before the epilogue, the block sums V's columns once and gives
+// each such row those sums as its acc and Sk + pk as its l, in a variant
+// of the kernel (EMPTY) launched only where a row can see no key (Sq -
+// Sk >= window); the other variant is the kernel without that step.
 //
 // The TPU grid (BH, q-blocks, kv-blocks) runs its kv dimension in order
 // and carries (m, l, acc) in VMEM scratch. Here one block owns one
@@ -78,6 +88,7 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   int H, n_rep, Sq, Sk, hd, causal, window;  // window <= 0: none
   float scale;
+  float empty_den;  // Sk + pk: an empty row's divisor
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -103,7 +114,7 @@ constexpr size_t smem_bytes() {
           static_cast<size_t>(BM) * LDP);        // P
 }
 
-template <typename T, int HDP>
+template <typename T, int HDP, bool EMPTY>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   constexpr int LDQ = HDP + 1;  // odd: the 16 rows a half-warp reads
   constexpr int LDV = HDP;      //   at one column sit in 16 banks
@@ -230,6 +241,43 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     }
   }
 
+  if constexpr (EMPTY) {
+    // a row that saw no key (l == 0) takes V's column sums over all Sk
+    // keys as its acc and the padded key range's length as its l: the 16
+    // row groups each sum every 16th key of their columns, then thread
+    // (ty, tx) adds up the 16 partial sums of its columns
+    bool empty = false;
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+      empty |= q0 + ty + 16 * i < p.Sq && l[i] == 0.f;
+    if (__syncthreads_or(empty)) {
+      float part[TO];
+#pragma unroll
+      for (int c = 0; c < TO; ++c) part[c] = 0.f;
+      for (int r = ty; r < p.Sk; r += 16)
+#pragma unroll
+        for (int c = 0; c < TO; ++c) {
+          const int col = tx + 16 * c;
+          if (col < p.hd) part[c] += to_f(vg[r * p.v_ss + col]);
+        }
+      // Ps is free: __syncthreads_or is a barrier after the last P.V
+#pragma unroll
+      for (int c = 0; c < TO; ++c) Ps[ty * HDP + tx + 16 * c] = part[c];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        if (l[i] != 0.f) continue;
+        l[i] = p.empty_den;
+#pragma unroll
+        for (int c = 0; c < TO; ++c) {
+          float sum = 0.f;
+          for (int g = 0; g < 16; ++g) sum += Ps[g * HDP + tx + 16 * c];
+          acc[i][c] = sum;
+        }
+      }
+    }
+  }
+
   T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
@@ -244,16 +292,26 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int HDP>
-cudaError_t launch(const Params& p, int BH, cudaStream_t stream) {
+template <typename T, int HDP, bool EMPTY>
+cudaError_t launch_variant(const Params& p, int BH, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      flash_fwd_kernel<T, HDP, EMPTY>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BM - 1) / BM, BH);
-  flash_fwd_kernel<T, HDP><<<grid, THREADS, bytes, stream>>>(p);
+  flash_fwd_kernel<T, HDP, EMPTY><<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The variant with the empty-row step only where a row can see no
+// key (windowed, Sq - Sk >= window): every other call runs the kernel
+// without it.
+template <typename T, int HDP>
+cudaError_t launch(const Params& p, int BH, cudaStream_t stream) {
+  if (p.window > 0 && p.Sq - p.Sk >= p.window)
+    return launch_variant<T, HDP, true>(p, BH, stream);
+  return launch_variant<T, HDP, false>(p, BH, stream);
 }
 
 template <typename T>
@@ -308,6 +366,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.causal = causal;
   p.window = window;
   p.scale = scale;
+  const int block_kv = Sk < 8 ? 8 : (Sk < 128 ? Sk : 128);
+  p.empty_den =
+      static_cast<float>(Sk + (block_kv - Sk % block_kv) % block_kv);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (code == kF32)

@@ -1,7 +1,7 @@
 // Forward flash attention on Hopper's tensor cores (sm_90a): bf16 q, k, v
 // on the model's (B, S, H, hd) layout with grouped-query KV heads, causal
-// and sliding-window masks, hd in {32, 64, 80, 96, 128}; non-causal
-// calls (bidirectional and cross-attention) may have Sk != Sq.
+// and sliding-window masks, hd in {32, 64, 80, 96, 128}; any call may
+// have Sk != Sq (positions aligned top-left, as the reference's).
 //
 // Replaces the TPU kernel `flash_attention_bh` / `_flash_kernel` of the
 // reference package (src/repro/kernels/flash_attention.py:74), reached
@@ -13,6 +13,10 @@
 //     out[q] = sum_k softmax_k(s)[k] * v[k] / max(l, 1e-30)
 //
 // with the running (m, l, acc) online softmax, rounded to bf16 at the end.
+// A row with no valid key (windowed, Sq > Sk, q >= Sk - 1 + window) gets
+// the reference's value: its -1e30 fill weighs every slot of the padded
+// key range 1, so the row is sum_{k<Sk} v[k] / (Sk + pk), pk the zero
+// rows that pad Sk to whole blocks of min(128, max(8, Sk)).
 // The Python wrapper sends here bf16 inputs whose head dim is one of the
 // five widths and whose base and strides TMA can address (16-byte base,
 // strides in multiples of 16 bytes); fp32 and every other bf16 input go to
@@ -34,8 +38,8 @@
 //   no copy) and a ragged Sq or Sk tail arrives as zeros. A zero key
 //   still scores 0 and would take softmax mass, so keys k >= Sk are
 //   masked to -inf by position in the last tile; the Q and K/V maps have
-//   Sq and Sk rows. The wrapper refuses causal or windowed calls with
-//   Sq != Sk, so the band's bounds below read one length. Q is loaded
+//   Sq and Sk rows; the band's bounds below take q positions from Q's
+//   rows and key positions from K's, both from 0. Q is loaded
 //   once; K and V go through a 2-stage ring in shared memory, with a full
 //   barrier each for K and V (S = Q K^T starts before V lands) and one
 //   empty barrier that all 256 consumer threads arrive on.
@@ -63,7 +67,14 @@
 //   so each product is exact, and what remains is about 2^-17 relative,
 //   below fp32 summation noise. Q K^T needs no split: bf16 x bf16 products
 //   are exact in fp32.
-// * Epilogue: O / max(l, 1e-30) to bf16, rows past Sq not stored.
+// * Epilogue: O / max(l, 1e-30) to bf16, rows past Sq not stored. A row
+//   whose l is 0 saw no key: before the epilogue, a warp that holds one
+//   sums V's columns over all Sk keys (the 8 lanes that share a thread's
+//   columns each take every 8th key, then shuffles add them up) and
+//   gives the row those sums and the padded range's length as its l.
+//   That step is compiled into a variant of its own (EMPTY), launched
+//   only where a row can see no key (windowed, Sq - Sk >= window); the
+//   other variant is the kernel without it.
 //
 // Plain C interface (no PyTorch headers): the Python wrapper passes raw
 // device pointers, element strides and the current stream, and checks
@@ -96,6 +107,9 @@ struct Params {
   long long o_sb, o_ss, o_sh;  // element strides of the output
   int H, n_rep, Sq, Sk, causal, window;  // window <= 0: none
   float scale_log2;                 // hd^-0.5 * log2(e)
+  const __nv_bfloat16* v;           // V again, for an empty row's mean
+  long long v_sb, v_ss, v_sh;
+  float empty_den;                  // Sk + pk: an empty row's divisor
 };
 
 // Shared memory of one block, in bytes from a 1024-aligned base. Every
@@ -123,7 +137,7 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD>
+template <int HD, bool EMPTY>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -311,6 +325,50 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_arrive(empty(s));
     }
 
+    if constexpr (EMPTY) {
+      // A row whose l is 0 saw no key: its O becomes V's column sums over
+      // all Sk keys and its l the padded key range's length (a quarter on
+      // each lane of its quad, exact), which the epilogue divides by.
+      // Lanes lane % 4 apart hold the same two columns of each 8-column
+      // group: each takes every 8th key, then shuffles add them up.
+      bool empty[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float sum = l[r];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        empty[r] = row + 8 * r < p.Sq && sum == 0.f;
+      }
+      if (__any_sync(0xffffffffu, empty[0] || empty[1])) {
+        const __nv_bfloat16* vg = p.v + b * p.v_sb + kh * p.v_sh;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          float sx = 0.f, sy = 0.f;
+          for (int k = lane / 4; k < p.Sk; k += 8) {
+            const float2 x = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(vg + k * p.v_ss +
+                                                         8 * j + col));
+            sx += x.x;
+            sy += x.y;
+          }
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            sx += __shfl_xor_sync(0xffffffffu, sx, off);
+            sy += __shfl_xor_sync(0xffffffffu, sy, off);
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (empty[r]) {
+              o[4 * j + 2 * r] = sx;
+              o[4 * j + 2 * r + 1] = sy;
+            }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (empty[r]) l[r] = 0.25f * p.empty_den;
+    }
+
     // epilogue: the quad's shares of each row sum, then O / l
     __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
                         h * p.o_sh;
@@ -379,18 +437,31 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int hd,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int HD, bool EMPTY>
+cudaError_t launch_variant(const CUtensorMap& tq, const CUtensorMap& tk,
+                           const CUtensorMap& tv, const Params& p, int BH,
+                           cudaStream_t stream) {
+  constexpr int bytes = Layout<HD>::bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<HD, EMPTY>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + BM - 1) / BM, BH);
+  flash_tc_kernel<HD, EMPTY><<<grid, THREADS, bytes, stream>>>(tq, tk, tv,
+                                                               p);
+  return cudaGetLastError();
+}
+
+// The variant with the empty-row step only where a row can see no
+// key (windowed, Sq - Sk >= window): every other call runs the kernel
+// without it.
 template <int HD>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const Params& p, int BH,
                    cudaStream_t stream) {
-  constexpr int bytes = Layout<HD>::bytes;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BM - 1) / BM, BH);
-  flash_tc_kernel<HD><<<grid, THREADS, bytes, stream>>>(tq, tk, tv, p);
-  return cudaGetLastError();
+  if (p.window > 0 && p.Sq - p.Sk >= p.window)
+    return launch_variant<HD, true>(tq, tk, tv, p, BH, stream);
+  return launch_variant<HD, false>(tq, tk, tv, p, BH, stream);
 }
 
 int smem_bytes(int hd) {
@@ -411,8 +482,7 @@ int smem_bytes(int hd) {
 // stride, hd in {32, 64, 80, 96, 128}, q, k and v 16-byte aligned with
 // (batch, seq, head) strides in multiples of 8 elements. `strides` holds
 // 12 element strides: (batch, seq, head) of q, k, v and o in that order.
-// window <= 0 means no window; `scale` is hd^-0.5. Causal or windowed
-// calls need Sk == Sq (the wrapper checks). Returns the launch's
+// window <= 0 means no window; `scale` is hd^-0.5. Returns the launch's
 // cudaError_t (0 on success); a tensor map cuTensorMapEncodeTiled refuses
 // returns cudaErrorInvalidValue. Does not synchronise and allocates
 // nothing.
@@ -442,6 +512,10 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   p.o_sb = strides[9];
   p.o_ss = strides[10];
   p.o_sh = strides[11];
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.v_sb = strides[6];
+  p.v_ss = strides[7];
+  p.v_sh = strides[8];
   p.H = H;
   p.n_rep = n_rep;
   p.Sq = Sq;
@@ -449,6 +523,9 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   p.causal = causal;
   p.window = window;
   p.scale_log2 = scale * 1.4426950408889634f;
+  const int block_kv = Sk < 8 ? 8 : (Sk < 128 ? Sk : 128);
+  p.empty_den =
+      static_cast<float>(Sk + (block_kv - Sk % block_kv) % block_kv);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (hd) {

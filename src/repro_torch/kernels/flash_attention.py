@@ -4,11 +4,19 @@ What the reference package's TPU kernel
 ``kernels/flash_attention.py::flash_attention_bh`` computes, on the
 model's ``(B, S, H, hd)`` layout with grouped-query KV heads (query head
 ``h`` reads KV head ``h // n_rep``). Positions are the row indices
-``0..Sq-1`` and ``0..Sk-1`` (Sk may differ from Sq only in a
-non-causal, unwindowed call: cross-attention): scores ``q·kᵀ·hd^-0.5``
-in fp32, masked by kv padding, ``causal`` (``q_pos >= k_pos``) and
-``window`` (``q_pos - k_pos < window``), online softmax, output
-``acc / max(l, 1e-30)`` in the input dtype.
+``0..Sq-1`` and ``0..Sk-1``, aligned top-left whatever the two lengths
+(key ``k`` and query ``q`` sit at the same position when ``k == q``):
+scores ``q·kᵀ·hd^-0.5`` in fp32, masked by kv padding, ``causal``
+(``q_pos >= k_pos``) and ``window`` (``q_pos - k_pos < window``), online
+softmax, output ``acc / max(l, 1e-30)`` in the input dtype.
+
+A row that sees no key at all (only a windowed call with Sq > Sk has
+one: ``q_pos >= Sk - 1 + window``) gets what the reference's blockwise
+walk gives it: every score is the -1e30 fill, so every slot of the
+padded key range weighs 1 and the row is the mean of V over it,
+``sum_{k<Sk} v[k] / (Sk + pk)`` with ``pk = (-Sk) mod min(128, max(8,
+Sk))`` zero rows of padding. Both CUDA kernels give it in their
+epilogue, to a row whose running sum ``l`` is 0.
 
 * :func:`flash_attention_cuda` — the hand-written Hopper kernels, one
   block per (batch·head, q tile) with the kv loop inside, band-outside kv
@@ -79,13 +87,6 @@ def _check_shapes(q, k, v, causal, window) -> int:
                          f"heads")
     if k.shape[1] < 1:
         raise ValueError("k and v hold no position")
-    if k.shape[1] != q.shape[1] and (causal or window is not None):
-        # positions are the row indices 0..Sq-1 and 0..Sk-1; a causal or
-        # windowed row may then see no key, where the kernel writes 0 and
-        # the plain version a mean over masked keys. Non-causal rows see
-        # all Sk keys (cross-attention), as in the reference.
-        raise ValueError(f"q and k/v must share one sequence length; got "
-                         f"Sq = {q.shape[1]}, Sk = {k.shape[1]}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None; got {window}")
     return h // kh

@@ -25,7 +25,13 @@ def attention_ref(q, k, v, causal=True, window=None):
     return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
 
 
-def rmsnorm_ref(x, scale, eps=1e-6):
+def rmsnorm_ref(x, scale, eps=1e-6, psum=None, width=None):
+    """x · rsqrt(mean(x²) + eps) · scale over the last dim, in fp32. With
+    ``psum``, x holds this rank's columns of rows ``width`` wide, split
+    over ranks: its sum of squares is summed over them by ``psum``."""
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    if psum is None:
+        var = xf.square().mean(dim=-1, keepdim=True)
+    else:
+        var = psum(xf.square().sum(dim=-1, keepdim=True)) / width
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

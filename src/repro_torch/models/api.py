@@ -112,17 +112,18 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
         return batch
 
     # decode: cache specs + one-token batch
-    cache = _specs_of(build_model(cfg, opts).init_cache(b, s,
-                                                        device="meta"))
+    cache = specs_of(build_model(cfg, opts).init_cache(b, s,
+                                                       device="meta"))
     return {"cache": cache,
             "batch": {"tokens": TensorSpec((b, 1), torch.int32)}}
 
 
-def _specs_of(tree):
+def specs_of(tree):
+    """A tree of tensors (dicts, SSMCaches) as :class:`TensorSpec`s."""
     if isinstance(tree, dict):
-        return {k: _specs_of(v) for k, v in tree.items()}
+        return {k: specs_of(v) for k, v in tree.items()}
     if isinstance(tree, tuple):             # an SSMCache
-        return type(tree)(*(_specs_of(v) for v in tree))
+        return type(tree)(*(specs_of(v) for v in tree))
     return TensorSpec(tuple(tree.shape), tree.dtype)
 
 
@@ -137,6 +138,16 @@ def scenario_shape(scenario, global_batch: int, seq: int) -> ShapeConfig:
     s = scenario.kv_len(seq) if kind == "decode" else seq
     return ShapeConfig(name=f"{scenario.label()}_{s}", seq_len=s,
                        global_batch=global_batch, kind=kind)
+
+
+def scenario_input_specs(cfg: ArchConfig, scenario, global_batch: int,
+                         seq: int,
+                         opts: ModelOptions = DEFAULT_OPTIONS
+                         ) -> Dict[str, Any]:
+    """``input_specs`` for a simulator scenario (see
+    :func:`scenario_shape`)."""
+    return input_specs(cfg, scenario_shape(scenario, global_batch, seq),
+                       opts)
 
 
 def make_batch(cfg: ArchConfig, shape: ShapeConfig,

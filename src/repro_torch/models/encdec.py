@@ -23,11 +23,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import DEFAULT_OPTIONS, ModelOptions
-from repro_torch.parallel.sharding import gather_dim, gather_fsdp
+from repro_torch.parallel.sharding import (gather_dim, gather_fsdp,
+                                           is_dtensor, settle)
 from repro_torch.models.lm import (EMPTY_POS, _attn_block,
                                    _attn_decode_block, _attn_shapes,
                                    _chunked_ce, _ffn_block, _ffn_shapes,
-                                   _head, _init_tree, _kv_cache, embed_lookup,
+                                   _head, _init_tree, _kv_cache,
+                                   _merge_heads, _split_heads, embed_lookup,
                                    layer_params, run_layer, unstack_layers)
 
 
@@ -202,10 +204,13 @@ def decode_step(cfg: ArchConfig, params, cache, batch,
         q = hn @ cp["wq"]
         if cfg.qkv_bias:
             q = q + cp["bq"]
-        q = q.reshape(b, 1, cfg.n_heads, hd)
-        o = L.attention_decode(q, cache["cross_k"][i], cache["cross_v"][i],
-                               cross_qpos, enc_pos)
-        x = x + o.reshape(b, 1, cfg.n_heads * hd) @ cp["wo"]
+        q = _split_heads(q, cfg.n_heads, hd)
+        ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+        attend = L.attend_cache_on_shards if is_dtensor(ck) \
+            else L.attention_decode
+        o = attend(q, ck, cv, cross_qpos, enc_pos)
+        x = settle(x + _merge_heads(o) @ cp["wo"])
         x, _ = _ffn_block(cfg, lp["ffn"], x, opts)
+        x = settle(x)
     x = L.rmsnorm(x, gather_fsdp(params["final_norm"]))
     return (x @ _head(cfg, params))[:, 0], {**cache, "pos": pos + 1}

@@ -158,18 +158,42 @@ def _causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return m
 
 
+class _TensorCoreDots(torch.autograd.Function):
+    """``torch.bmm(a, b, out_dtype=torch.float32)`` of bf16 ``a``, ``b``
+    (the tensor cores' product, exact products summed in fp32), with the
+    backward of the upcast product ``bmm(a.float(), b.float())``: each
+    gradient an fp32 GEMM of the fp32 cotangent and the other operand,
+    rounded to bf16. torch 2.11 has no derivative for the ``out_dtype``
+    product."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
 def _dots(a, b):
     """``a·bᵀ`` over the last two dims: (..., Q, hd) x (..., K, hd) →
     (..., Q, K) in fp32, the reference's ``preferred_element_type=
     float32`` (bf16 products are exact in fp32 and summed in fp32). bf16
-    on the card runs on the tensor cores with an fp32 output; everything
-    else is upcast to an fp32 GEMM (no TF32 unless the process allows
-    it)."""
+    on the card runs on the tensor cores with an fp32 output
+    (:class:`_TensorCoreDots`); everything else is upcast to an fp32
+    GEMM (no TF32 unless the process allows it)."""
     lead, q, k = a.shape[:-2], a.shape[-2], b.shape[-2]
     a3 = a.reshape(-1, q, a.shape[-1])
     b3 = b.reshape(-1, k, b.shape[-1]).transpose(1, 2)
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
-        out = torch.bmm(a3, b3, out_dtype=torch.float32)
+        out = _TensorCoreDots.apply(a3, b3)
     else:
         out = torch.bmm(a3.float(), b3.float())
     return out.view(*lead, q, k)
@@ -459,6 +483,44 @@ def attention_decode(q, k_cache, v_cache, q_pos, k_pos, window=None,
     return out.reshape(b, 1, kh * n_rep, hd)
 
 
+def _cache_shards(kc):
+    """How a DTensor cache (B, S, KH, hd) is split: its mesh, the mesh
+    dims that split its sequence, the placements of its batch (and of
+    anything split like it, the positions) and of a query (B, 1, H, hd)
+    split as it splits batch and KV heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    seq_dims = [i for i, p in enumerate(kc.placements) if p.is_shard(1)]
+    head_dims = {i for i, p in enumerate(kc.placements) if p.is_shard(2)}
+    batch = [Shard(0) if p.is_shard(0) else Replicate()
+             for p in kc.placements]
+    q_place = [Shard(2) if i in head_dims else p
+               for i, p in enumerate(batch)]
+    return kc.device_mesh, seq_dims, batch, q_place
+
+
+def _first_slot(mesh, seq_dims, s_loc: int) -> int:
+    """The first of this rank's ``s_loc`` slots of a sequence split over
+    ``seq_dims``."""
+    first = 0
+    for i in seq_dims:
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+    return first * s_loc
+
+
+def _seq_reduce(mesh, seq_dims):
+    """:func:`attention_decode`'s ``reduce`` over the ranks that hold the
+    parts of a split sequence (None for a whole one)."""
+    import torch.distributed._functional_collectives as funcol
+    if not seq_dims:
+        return None
+
+    def reduce(t, op):
+        for i in seq_dims:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+    return reduce
+
+
 def decode_on_shards(q, k, v, pos, cache, window=None):
     """One decode step's attention over a DTensor KV cache: write the new
     token's k, v and position into ``cache`` (this layer's ``k``, ``v``
@@ -472,25 +534,15 @@ def decode_on_shards(q, k, v, pos, cache, window=None):
     keys, with the softmax's max and sum and the output all-reduced over
     those ranks (its ``reduce``). q (B,1,H,hd), k, v (B,1,KH,hd), pos
     (B,)."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
     kc = cache["k"]
-    mesh = kc.device_mesh
-    seq_dims = [i for i, p in enumerate(kc.placements) if p.is_shard(1)]
-    head_dims = {i for i, p in enumerate(kc.placements) if p.is_shard(2)}
-    batch = [Shard(0) if p.is_shard(0) else Replicate()
-             for p in kc.placements]
-    q_place = [Shard(2) if i in head_dims else p
-               for i, p in enumerate(batch)]
+    mesh, seq_dims, batch, q_place = _cache_shards(kc)
     kpos_place = cache["kpos"].placements
 
     def body(q, k, v, pos, kc, vc, kp):
         b, s_loc = kc.shape[:2]
-        first = 0
-        for i in seq_dims:               # this rank's range of slots
-            first = first * mesh.size(i) + mesh.get_local_rank(i)
-        first *= s_loc
+        first = _first_slot(mesh, seq_dims, s_loc)
         bi = torch.arange(b, device=q.device)
         slot = (pos % (kp.shape[1])).long()
         here = slot - first
@@ -501,14 +553,8 @@ def decode_on_shards(q, k, v, pos, cache, window=None):
                                         buf[bi, here])
         kp[bi, slot] = pos
         keys = kp[:, first:first + s_loc]
-
-        def reduce(t, op):
-            for i in seq_dims:
-                t = funcol.all_reduce(t, op, (mesh, i))
-            return t
-
         return attention_decode(q, kc, vc, pos[:, None], keys, window,
-                                reduce if seq_dims else None)
+                                _seq_reduce(mesh, seq_dims))
 
     kv_new = [Replicate() if i in seq_dims else p
               for i, p in enumerate(kc.placements)]
@@ -520,6 +566,27 @@ def decode_on_shards(q, k, v, pos, cache, window=None):
               *(sharding.place(t, mesh, kv_new) for t in (k, v)),
               sharding.place(pos, mesh, batch), kc, cache["v"],
               cache["kpos"])
+
+
+def attend_cache_on_shards(q, kc, vc, q_pos, k_pos):
+    """:func:`attention_decode` of q (B,1,H,hd) at ``q_pos`` (B,1) over a
+    DTensor cache ``kc``, ``vc`` (B, S, KH, hd) that is read, not written
+    (the enc-dec model's cross-attention K/V), its slots at ``k_pos``
+    (B, S), on each rank's shards as :func:`decode_on_shards` attends."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh, seq_dims, batch, q_place = _cache_shards(kc)
+
+    def body(q, kc, vc, q_pos, kp):
+        first = _first_slot(mesh, seq_dims, kc.shape[1])
+        return attention_decode(q, kc, vc, q_pos,
+                                kp[:, first:first + kc.shape[1]], None,
+                                _seq_reduce(mesh, seq_dims))
+
+    fn = local_map(body, out_placements=q_place,
+                   in_placements=(q_place, kc.placements, vc.placements,
+                                  batch, batch), device_mesh=mesh)
+    return fn(sharding.place(q, mesh, q_place), kc, vc,
+              *(sharding.place(t, mesh, batch) for t in (q_pos, k_pos)))
 
 
 def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
@@ -541,6 +608,28 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
         return kops.flash_attention(q, k, v, q_pos, k_pos, causal=causal,
                                     window=window)
     raise ValueError(f"unknown attn_impl {impl!r}")
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous.
+
+    A rank's attention hands DTensor its gradients of q, k and v, and
+    DTensor takes every local shard for contiguous: it decides views by
+    the global strides it infers, not the shard's own. The score
+    product's backward (:func:`_dots`) leaves k's gradient in the layout
+    of ``kᵀ`` (sequence stride 1), and elementwise ops after it keep that
+    layout. With one head a rank (t5_large's 16 heads over 16 ranks),
+    DTensor then merges the heads by a view that the shard allows and
+    the matmul's backward folds the result (B, S, d) to (B·S, d) by one
+    that it does not."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def _sharded_attention(q, k, v, q_pos, k_pos, causal, window, opts):
@@ -591,6 +680,8 @@ def _sharded_attention(q, k, v, q_pos, k_pos, causal, window, opts):
         kpos_place.append(Shard(0) if kp.is_shard(0) else Replicate())
 
     def body(q, k, v, q_pos, k_pos):
+        # gradients handed back to DTensor contiguous, as it assumes
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
         if kv_dim is not None:           # this rank's query heads' KV heads
             hq = q.shape[2]
             n_rep = hq * mesh.size(kv_dim) // k.shape[2]
@@ -619,23 +710,32 @@ def _sharded_attention(q, k, v, q_pos, k_pos, causal, window, opts):
 # --------------------------------------------------------------------------
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w``. A DTensor ``x`` sharded somewhere, times a weight whole
-    on every rank, is multiplied on each rank's shard (the weight's
-    gradient summed over ``x``'s sharded mesh dimensions): DTensor's own
-    product flattens a batch and a sequence sharded over two mesh axes
-    into one dimension, which it cannot propagate under fake tensors."""
+    """``x @ w``. A DTensor ``x`` sharded somewhere but in its last
+    (contracted) dimension, times a weight whole on every rank, is
+    multiplied on each rank's shard (the weight's gradient summed over
+    ``x``'s sharded mesh dimensions): DTensor's own product flattens a
+    batch and a sequence sharded over two mesh axes into one dimension,
+    which it cannot propagate under fake tensors. An ``x`` split in its
+    contracted dimension (a column-parallel product's output meeting a
+    weight that no rule splits) is left to DTensor, which multiplies
+    each shard by its rows of ``w`` into a pending sum."""
     if not (sharding.is_dtensor(x) and sharding.is_dtensor(w)
             and all(p.is_replicate() for p in w.placements)
-            and any(p.is_shard() for p in x.placements)):
+            and any(p.is_shard() for p in x.placements)
+            and not any(p.is_shard(x.ndim - 1) for p in x.placements)):
         return x @ w
     from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     mesh = x.device_mesh
     place = list(x.placements)
-    grad = [Partial() if p.is_shard() else Replicate() for p in place]
+    # a pending sum in x stays one in the product (it is linear); each of
+    # its terms gets the whole gradient, and w's gradient is summed over
+    # its mesh dimensions as over x's shards
+    x_grad = [Replicate() if p.is_partial() else p for p in place]
+    w_grad = [Replicate() if p.is_replicate() else Partial() for p in place]
     fn = local_map(torch.matmul, out_placements=place,
                    in_placements=(place, w.placements),
-                   in_grad_placements=(place, grad), device_mesh=mesh)
+                   in_grad_placements=(x_grad, w_grad), device_mesh=mesh)
     return fn(x, w)
 
 

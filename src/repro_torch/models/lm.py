@@ -40,7 +40,8 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import DEFAULT_OPTIONS, ModelOptions
 from repro_torch.parallel import sharding
-from repro_torch.parallel.sharding import gather_dim, gather_fsdp, is_dtensor
+from repro_torch.parallel.sharding import (gather_dim, gather_fsdp,
+                                           is_dtensor, settle)
 
 Params = Dict[str, Any]
 
@@ -188,6 +189,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         params[f"{kind}_layers"] = _init_tree(generator, shapes[kind], stack,
                                               dtype, dev)
     return params
+
+
+def param_shapes(cfg: ArchConfig, opts: ModelOptions = DEFAULT_OPTIONS):
+    """The parameter tree of :func:`init_params` as
+    :class:`~repro_torch.models.api.TensorSpec` leaves, without
+    allocating: built on the ``meta`` device, as ``api.input_specs``
+    builds the decode cache."""
+    from repro_torch.models.api import specs_of
+    return specs_of(init_params(cfg, torch.Generator(), "meta", opts))
 
 
 def unstack_layers(stacked: Params, n: int) -> list:
@@ -356,26 +366,52 @@ def _ffn_block(cfg, p, x, opts):
 
 
 def _ssm_on_shards(h, sp, scfg):
-    """:func:`~repro_torch.models.ssm.ssm_block` over a DTensor ``h``:
-    on each rank's batch shard through ``local_map``, the block's
-    weights gathered whole (its in-projection's outputs are split into
-    z, x, B, C and dt at offsets no weight shard keeps to), their
-    gradients summed over the batch's mesh dimensions."""
+    """:func:`~repro_torch.models.ssm.ssm_block` over a DTensor ``h``
+    (sequence whole), through ``local_map``: each rank takes its batch
+    shard and, where the mesh has a ``model`` dimension of more than one
+    rank that the block's heads divide, its share of the heads, as the
+    reference's XLA splits the block (Megatron's split of an SSM): its
+    columns of z, x and dt and all of B and C (one group), its conv
+    channels, the chunked scan on its heads, the gated norm's sum of
+    squares all-reduced over ``model``, its rows of ``out_proj`` (a
+    partial sum over ``model``). The weights enter whole, so the
+    parameter tree keeps the reference's layout and placements; each
+    rank slices its heads out (:func:`~repro_torch.models.ssm.
+    head_shard`), and the gradients, zero outside a rank's slices, are
+    summed over the batch's and the heads' mesh dimensions. Heads that
+    ``model`` does not divide run whole on every ``model`` rank."""
+    import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = h.device_mesh
+    d = h.shape[-1]
+    n_heads = S.ssm_dims(d, scfg)[1]
     place = [Shard(0) if p.is_shard(0) else Replicate()
              for p in h.placements]
+    axes = mesh.mesh_dim_names or ()
+    tp = axes.index("model") if "model" in axes else None
+    if tp is not None and (mesh.size(tp) == 1 or n_heads % mesh.size(tp)
+                           or place[tp].is_shard()):
+        tp = None
+    out = [Partial() if i == tp else p for i, p in enumerate(place)]
     whole = [Replicate()] * mesh.ndim
-    grad = [Partial() if p.is_shard() else Replicate() for p in place]
+    grad = [Partial() if p.is_shard() or i == tp else Replicate()
+            for i, p in enumerate(place)]
     names = sorted(sp)
 
     def body(x, *ws):
-        return S.ssm_block(x, dict(zip(names, ws)), scfg)
+        params = dict(zip(names, ws))
+        if tp is None:
+            return S.ssm_block(x, params, scfg)
+        params = S.head_shard(params, d, scfg, mesh.get_local_rank(tp),
+                              mesh.size(tp))
+        return S.ssm_block(x, params, scfg, psum=lambda t: funcol.all_reduce(
+            t, "sum", (mesh, tp)))
 
-    fn = local_map(body, out_placements=place,
+    # h's gradient is placed as the output: each rank's heads' share
+    fn = local_map(body, out_placements=out,
                    in_placements=(place, *[whole] * len(names)),
-                   in_grad_placements=(place, *[grad] * len(names)),
+                   in_grad_placements=(out, *[grad] * len(names)),
                    device_mesh=mesh)
     return fn(sharding.place(h, mesh, place),
               *(sharding.place(sp[k], mesh, whole) for k in names))
@@ -608,7 +644,7 @@ def _attn_decode_block(cfg, p, x, pos, kcache):
 
     if is_dtensor(kcache["k"]):
         o = L.decode_on_shards(q, k, v, pos, kcache, cfg.sliding_window)
-        return x + _merge_heads(o) @ p["wo"]
+        return settle(x + _merge_heads(o) @ p["wo"])
     s = kcache["k"].shape[1]
     slot = (pos % s).long()                                # ring buffer
     bi = torch.arange(b, device=x.device)
@@ -630,17 +666,17 @@ def _ssm_decode_layer(cfg, p, x, cache: S.SSMCache, opts):
     y, new = S.ssm_block_decode(h, sp, cfg.ssm, cache)
     cache.conv.copy_(new.conv)
     cache.state.copy_(new.state)
-    x = x + y
+    x = settle(x + y)
     if "ffn" in p:
         x, _ = _ffn_block(cfg, p["ffn"], x, opts)
-    return x
+    return settle(x)
 
 
 def _attn_decode_layer(cfg, lp, x, pos, kcache, opts):
     pa = {k: v for k, v in lp.items() if k != "ffn"}
     x = _attn_decode_block(cfg, pa, x, pos, kcache)
     x, _ = _ffn_block(cfg, lp["ffn"], x, opts)
-    return x
+    return settle(x)
 
 
 @torch.no_grad()

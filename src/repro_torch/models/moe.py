@@ -38,6 +38,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.parallel.sharding import is_dtensor, settle
+from repro_torch.parallel.sharding import place as place_on
 
 
 def moe_params_shape(d_model: int, mcfg: MoEConfig, mlp_gelu: bool = False):
@@ -99,14 +101,36 @@ def _routing(x2d, router_w, mcfg: MoEConfig, cap: int):
     return probs, topi, sel, order
 
 
-def _experts(xe, params):
+def _swiglu_experts(xe, w_gate, w_up, w_down):
     """(E, C, d) → (E, C, d): each expert's SwiGLU on its slots, in
     xe's dtype (the weights promoted to it, as ``jnp.einsum`` does)."""
-    def w(name):
-        return params[name].to(xe.dtype)
-    g = torch.bmm(xe, w("w_gate"))
-    u = torch.bmm(xe, w("w_up"))
-    return torch.bmm(F.silu(g) * u, w("w_down"))
+    g = torch.bmm(xe, w_gate.to(xe.dtype))
+    u = torch.bmm(xe, w_up.to(xe.dtype))
+    return torch.bmm(F.silu(g) * u, w_down.to(xe.dtype))
+
+
+def _experts(xe, params):
+    """:func:`_swiglu_experts` of ``params``. On DTensors each rank
+    multiplies its experts' rows (the weights' expert shards) on every
+    capacity slot, through ``local_map``, as the reference's XLA places
+    the product (its per-device FLOPs on 2 x 2, 4 x 2 and 8 x 2 meshes):
+    left to DTensor's strategy choice, torch 2.13 splits the contracted
+    width over ``data`` on a 16 x 16 mesh and torch 2.11 does not."""
+    ws = [params[k] for k in ("w_gate", "w_up", "w_down")]
+    if not (is_dtensor(xe) and all(map(is_dtensor, ws))):
+        return _swiglu_experts(xe, *ws)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xe.device_mesh
+    place = [Shard(0) if w.is_shard(0) else Replicate()
+             for w in ws[0].placements]
+    # the rows each rank holds: a weight's gradient is whole on each
+    # rank that multiplied all the slots of its experts
+    fn = local_map(_swiglu_experts, out_placements=place,
+                   in_placements=(place,) * 4,
+                   in_grad_placements=(place,) * 4, device_mesh=mesh)
+    return fn(place_on(xe, mesh, place),
+              *(place_on(w, mesh, place) for w in ws))
 
 
 def moe_gather(x: torch.Tensor, params, mcfg: MoEConfig):
@@ -129,6 +153,15 @@ def moe_gather(x: torch.Tensor, params, mcfg: MoEConfig):
     return combine(y, order, topi).reshape(b, s, d), probs
 
 
+def _queue_rank(order: torch.Tensor) -> torch.Tensor:
+    """Each token's rank in each expert's queue, (T, E): the inverse of
+    the permutations ``order[:, e]``, as their argsort. It is made from
+    ``order`` alone, so it takes its type and placement (a DTensor's
+    queues give a DTensor; scattering them into a new plain tensor fails
+    there)."""
+    return torch.argsort(order, dim=0)
+
+
 def combine(y: torch.Tensor, order: torch.Tensor,
             topi: torch.Tensor) -> torch.Tensor:
     """The experts' rows y (E, C, d) back in token order, (T, d): each
@@ -136,20 +169,60 @@ def combine(y: torch.Tensor, order: torch.Tensor,
     y's dtype. ``order`` is the experts' queues (T, E), ``topi`` each
     token's chosen experts (T, k). Token t's slot in expert e's queue is
     its rank there; a chosen expert whose queue it did not make (rank >=
-    C) reads a zero row appended at index E·C."""
-    e, cap, d = y.shape
-    t = order.shape[0]
-    rank = torch.empty((t, e), dtype=torch.long, device=y.device)
-    rank.scatter_(0, order, torch.arange(t, device=y.device)[:, None]
-                  .expand(t, e))
+    C) reads a zero row appended at index E·C. On DTensors see
+    :func:`_combine_on_shards`."""
+    rank = _queue_rank(order)
     experts = torch.sort(topi, dim=1).values                # (T,k) ascending
+    if is_dtensor(y):
+        return _combine_on_shards(y, rank, experts)
+    return _combine_rows(y, rank, experts)
+
+
+def _combine_rows(y, rank, experts, e0: int = 0):
+    """:func:`combine` of the rows y (E', C, d) of experts e0 .. e0+E'-1:
+    a token's chosen expert outside them reads the zero row too."""
+    e, cap, d = y.shape
     r = torch.gather(rank, 1, experts)
-    rows = torch.where(r < cap, experts * cap + r, e * cap)
+    mine = (r < cap) & (experts >= e0) & (experts < e0 + e)
+    rows = torch.where(mine, (experts - e0) * cap + r, e * cap)
     flat = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
-    out = torch.zeros((t, d), dtype=y.dtype, device=y.device)
+    out = torch.zeros((experts.shape[0], d), dtype=y.dtype, device=y.device)
     for j in range(rows.shape[1]):
         out = out + flat[rows[:, j]]
     return out
+
+
+def _combine_on_shards(y, rank, experts):
+    """:func:`_combine_rows` over DTensors, through ``local_map``, as the
+    reference's XLA combines: each rank adds, for its tokens, the rows of
+    its own experts (y's shard on the mesh dimension that splits the
+    experts), a pending sum over that dimension that is then reduced
+    (Megatron's all-reduce after a row-parallel product, of (T, d) and
+    not of y's E·C rows). The tokens keep their shards on the other mesh
+    dimensions. Across the experts' dimension the sum runs in another
+    order than the plain combine's. With the experts whole (no dimension
+    divides them) y is replicated and each rank adds its tokens' rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = y.device_mesh
+    ep = [i for i, p in enumerate(y.placements) if p.is_shard(0)]
+    tp = ep[0] if len(ep) == 1 else None
+    tok = [Shard(0) if i != tp and p.is_shard(0) else Replicate()
+           for i, p in enumerate(experts.placements)]
+    yp = [Shard(0) if i == tp else Replicate() for i in range(mesh.ndim)]
+    out = [Partial() if i == tp else p for i, p in enumerate(tok)]
+    # y's gradient sums over the tokens' shards
+    ygrad = [Partial() if p.is_shard() and i != tp else q
+             for i, (p, q) in enumerate(zip(tok, yp))]
+
+    def body(y, rank, experts):
+        e0 = 0 if tp is None else mesh.get_local_rank(tp) * y.shape[0]
+        return _combine_rows(y, rank, experts, e0)
+
+    fn = local_map(body, out_placements=out, in_placements=(yp, tok, tok),
+                   in_grad_placements=(ygrad, tok, tok), device_mesh=mesh)
+    return settle(fn(place_on(y, mesh, yp), place_on(rank, mesh, tok),
+                     place_on(experts, mesh, tok)))
 
 
 def moe_dense_dispatch(x: torch.Tensor, params, mcfg: MoEConfig):
@@ -160,10 +233,7 @@ def moe_dense_dispatch(x: torch.Tensor, params, mcfg: MoEConfig):
     x2d = x.reshape(t, d)
     cap = capacity(t, mcfg)
     probs, topi, sel, order = _routing(x2d, params["router"], mcfg, cap)
-    # rank of token within expert queue
-    rank = torch.empty((t, e), dtype=torch.long, device=x.device)
-    rank.scatter_(0, order, torch.arange(t, device=x.device)[:, None]
-                  .expand(t, e))
+    rank = _queue_rank(order)
     keep = (rank < cap) & torch.isfinite(sel)
     disp = (F.one_hot(torch.where(keep, rank, cap), cap + 1)[..., :cap]
             .float() * keep[..., None])                     # (T,E,C)

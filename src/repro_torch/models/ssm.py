@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.parallel.sharding import gather_dim, is_dtensor
 
 
 def ssm_dims(d_model: int, scfg: SSMConfig):
@@ -150,11 +151,47 @@ def _split_xbc(xbc, d_inner, d_state):
     return x, B_mat, C_mat
 
 
-def ssm_block(x_in: torch.Tensor, params, scfg: SSMConfig) -> torch.Tensor:
-    """Full Mamba2 block forward. x_in: (B,L,d) → (B,L,d)."""
+def head_shard(params, d_model: int, scfg: SSMConfig, rank: int,
+               n_ranks: int):
+    """The block's weights of the heads rank ``rank`` of ``n_ranks``
+    holds, when the block is split over heads (``n_ranks`` divides the
+    heads): their columns of z, x and dt and all of B and C from
+    ``in_proj``, their conv channels of x and all of B and C, their
+    ``dt_bias``, ``A_log``, ``D`` and ``norm_scale`` entries and their
+    rows of ``out_proj``. Slices of the whole weights, so their
+    gradients land in the whole weights' places."""
+    d_inner, n_heads = ssm_dims(d_model, scfg)
+    n, hl = scfg.d_state, n_heads // n_ranks
+    h0, c0, cl = rank * hl, rank * hl * scfg.head_dim, hl * scfg.head_dim
+    w, cw, cb = params["in_proj"], params["conv_w"], params["conv_b"]
+    bc = slice(2 * d_inner, 2 * d_inner + 2 * n)
+    return {
+        "in_proj": torch.cat([w[:, c0:c0 + cl],
+                              w[:, d_inner + c0:d_inner + c0 + cl],
+                              w[:, bc],
+                              w[:, bc.stop + h0:bc.stop + h0 + hl]], 1),
+        "conv_w": torch.cat([cw[:, c0:c0 + cl], cw[:, d_inner:]], 1),
+        "conv_b": torch.cat([cb[c0:c0 + cl], cb[d_inner:]]),
+        "dt_bias": params["dt_bias"][h0:h0 + hl],
+        "A_log": params["A_log"][h0:h0 + hl],
+        "D": params["D"][h0:h0 + hl],
+        "norm_scale": params["norm_scale"][c0:c0 + cl],
+        "out_proj": params["out_proj"][c0:c0 + cl],
+    }
+
+
+def ssm_block(x_in: torch.Tensor, params, scfg: SSMConfig,
+              psum=None) -> torch.Tensor:
+    """Full Mamba2 block forward. x_in: (B,L,d) → (B,L,d).
+
+    The head count is ``params``'s: given :func:`head_shard`'s weights
+    it runs those heads, and the result is this rank's share of the
+    output (its rows of ``out_proj``), to be summed over the ranks;
+    ``psum(t)`` then sums ``t`` over them for the gated norm."""
     from repro_torch.models.layers import rmsnorm
     b, l, d = x_in.shape
-    d_inner, n_heads = ssm_dims(d, scfg)
+    n_heads = params["A_log"].shape[0]
+    d_inner = n_heads * scfg.head_dim
     n = scfg.d_state
 
     proj = x_in @ params["in_proj"]
@@ -171,7 +208,8 @@ def ssm_block(x_in: torch.Tensor, params, scfg: SSMConfig) -> torch.Tensor:
     y, _ = ssd_chunked(xs, dt, A, B_mat, C_mat, scfg.chunk)
     y = y + xs * params["D"].to(xs.dtype)[None, None, :, None]
     y = y.reshape(b, l, d_inner)
-    y = rmsnorm(y * F.silu(z), params["norm_scale"])
+    y = rmsnorm(y * F.silu(z), params["norm_scale"], psum=psum,
+                width=ssm_dims(d, scfg)[0])
     return y @ params["out_proj"]
 
 
@@ -206,9 +244,20 @@ def ssm_block_decode(x_in: torch.Tensor, params, scfg: SSMConfig,
     upd = (dt[..., None] * xs.float())[..., None] \
         * B_mat.float()[:, None, None, :]                        # (B,H,P,N)
     h_new = cache.state * decay[..., None, None] + upd
-    y = torch.einsum("bhpn,bn->bhp", h_new, C_mat.float())
+    if is_dtensor(h_new):
+        # The decode step runs on DTensors as DTensor places it, the
+        # state's heads split over `model` as cache_specs splits them
+        # (a step is one token a sequence: no split by hand is worth
+        # its collectives). DTensor cannot propagate a fold of a split
+        # dimension with another: the contraction over N is a product
+        # and a sum (the same values, summed in another order), and y,
+        # (B, H, P), has its heads and head columns gathered before it
+        # is flattened.
+        y = (h_new * C_mat.float()[:, None, None, :]).sum(-1)
+    else:
+        y = torch.einsum("bhpn,bn->bhp", h_new, C_mat.float())
     y = y.to(xs.dtype) + xs * params["D"].to(xs.dtype)[None, :, None]
-    y = y.reshape(b, d_inner)
+    y = gather_dim(gather_dim(y, 1), 2).reshape(b, d_inner)
     y = rmsnorm((y * F.silu(z))[:, None, :], params["norm_scale"])
     out = y @ params["out_proj"]
     return out, SSMCache(conv=new_conv, state=h_new)

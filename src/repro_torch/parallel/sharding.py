@@ -298,6 +298,20 @@ def is_dtensor(x) -> bool:
     return mod is not None and isinstance(x, mod.DTensor)
 
 
+def settle(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its pending sums (``Partial`` placements) reduced,
+    its other placements kept; a plain tensor as it is. Megatron's
+    all-reduce after a row-parallel product, where no residual-stream
+    spec places the result (decode): left pending, the sum meets the
+    next column-parallel weight, and DTensor gathers that weight whole
+    on every rank instead."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
 def place(x: torch.Tensor, mesh, placements):
     """``x`` with ``placements`` on ``mesh``: a DTensor is redistributed;
     a plain tensor is taken as this rank's copy of a replicated value

@@ -1,14 +1,14 @@
 """The port's dry run against the reference's: the per-device FLOPs of
-each smoke family's train and prefill cell, the CLI on 256 fake ranks,
-and the production meshes on the CPU.
+each smoke family's train and prefill cell (and the MoE's and the
+enc-dec's decode cell, with their collective bytes), the CLI on 256
+fake ranks, and the production meshes on the CPU.
 
 The reference lowers its cells in a child python on 4 forced CPU devices
 (``tests/test_torch_dryrun_ref.py``): its ``repro.launch.dryrun`` sets
 ``XLA_FLAGS`` when imported, which this process must never see. The
 port traces the same cells here, over a fake process group of 4 ranks,
-on the family's mesh: (2, 2), except (4, 1) for the SSM families, whose
-SSM block the port runs whole on each rank's batch shard where XLA
-splits it over ``model``.
+on the (2, 2) mesh: the SSM families' block split over ``model`` by
+heads, as XLA splits it.
 
 Bars. Where both sides do the same work the port's count is held within
 10 % of the reference's ``hlo_stats``. The one gap of that kind is the
@@ -59,16 +59,20 @@ def reference(tmp_path_factory):
     return json.loads(out.read_text())
 
 
-def _port_flops(arch, kind, seq, batch):
+def _port_stats(arch, kind, seq, batch):
     cfg = smoke_config(get_config(arch))
     shape = ShapeConfig(f"{kind}_{seq}", seq, batch, kind)
     with D.fake_world(4):
-        mesh = _mesh("cpu", ref.mesh_of(cfg.family), ("data", "model"))
+        mesh = _mesh("cpu", ref.MESH, ("data", "model"))
         opts = D.model_options(cfg, shape, mesh)
         fsdp, model_axis = D.fsdp_axes(cfg, shape, mesh, False, "tp_sp")
         stats, *_ = D.trace_step(cfg, shape, opts, mesh, fsdp, model_axis,
                                  device="cpu")
-    return stats["flops"]
+    return stats
+
+
+def _port_flops(arch, kind, seq, batch):
+    return _port_stats(arch, kind, seq, batch)["flops"]
 
 
 def _skipped_pairs_flops(monkeypatch):
@@ -98,8 +102,25 @@ def _no_pair_skipped(monkeypatch):
     monkeypatch.setattr(L, "_block_pairs", every_pair)
 
 
-CELL_IDS = [ref.cell_name(a, k, s) for a in ref.FAMILIES.values()
-            for k, s, _ in ref.CELLS]
+CELL_IDS = [ref.cell_name(a, k, s) for f, a in ref.FAMILIES.items()
+            for k, s, _ in ref.cells_of(f)]
+
+
+DECODE_IDS = [ref.cell_name(ref.FAMILIES[f], k, s)
+              for f, cells in ref.DECODE_CELLS.items() for k, s, _ in cells]
+
+
+@pytest.mark.parametrize("cell", DECODE_IDS)
+def test_decode_collective_bytes_within_the_references(reference, cell):
+    """The MoE's and the enc-dec's decode move no more collective bytes a
+    device than the reference's XLA, within the bar: the MoE's combine
+    reduces a pending sum of the tokens' rows, it gathers no expert's
+    rows."""
+    arch, rest = cell.split("/")
+    kind, seq = rest.split("_")
+    want = reference[cell]["total"]
+    got = _port_stats(arch, kind, int(seq), 8)["total"]
+    assert 0 < got <= (1 + CLOSE) * want, (got, want)
 
 
 @pytest.mark.parametrize("cell", CELL_IDS)

@@ -124,11 +124,12 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_bad_shapes():
 @pytest.mark.parametrize("fn", [fa.flash_attention, fa.flash_attention_cuda,
                                 ops.flash_attention])
 def test_query_and_key_lengths_must_match(fn):
-    """Positions are the row indices of one sequence: a shorter or
-    longer k/v is refused before any implementation runs."""
+    """k and v hold one key each a position: a k shorter than v (the
+    query's length may differ from both) is refused before any
+    implementation runs."""
     q, k, v = (torch.from_numpy(a) for a in qkv(1, 32, 4, 2, 32))
-    with pytest.raises(ValueError, match="sequence length"):
-        fn(q, k[:, :16], v[:, :16], window=8)
+    with pytest.raises(ValueError, match="matching q"):
+        fn(q, k[:, :16], v, window=8)
 
 
 def qkv_cross(b, sq, sk, h, kh, hd, seed=0):
@@ -139,33 +140,72 @@ def qkv_cross(b, sq, sk, h, kh, hd, seed=0):
             rng.standard_normal((b, sk, kh, hd), dtype=np.float32))
 
 
-@pytest.mark.parametrize("sq,sk", [(40, 72), (72, 40), (1000, 1500)])
+#: (Sq, Sk, causal, window) with Sq != Sk: cross-attention (non-causal,
+#: no window), four causal or windowed shapes, and two windowed ones
+#: with rows that see no key (Sq > Sk: rows q >= Sk - 1 + window;
+#: Sk = 200 pads to 256, Sk = 5 to 8)
+LENGTHS = [pytest.param(40, 72, False, None, id="40-72"),
+           pytest.param(72, 40, False, None, id="72-40"),
+           pytest.param(1000, 1500, False, None, id="1000-1500"),
+           pytest.param(40, 72, True, None, id="40-72-causal"),
+           pytest.param(72, 40, True, None, id="72-40-causal"),
+           pytest.param(72, 40, False, 8, id="72-40-window8"),
+           pytest.param(40, 72, True, 16, id="40-72-causal-window16"),
+           pytest.param(300, 200, True, 16,
+                        id="300-200-causal-window16-empty-rows"),
+           pytest.param(40, 5, False, 4, id="40-5-window4-empty-rows")]
+
+
+def empty_rows(sq, sk, window):
+    """The query rows that see no key: q - (Sk - 1) >= window."""
+    if window is None:
+        return np.zeros(sq, bool)
+    return np.arange(sq) - (sk - 1) >= window
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", LENGTHS)
 @pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
                                         ("bfloat16", 2e-2)])
-def test_cross_attention_lengths_match_the_reference(sq, sk, dtype, atol):
-    """Non-causal attention with Sq != Sk (the enc-dec model's
-    cross-attention, GQA n_rep 2): every query row sees all Sk keys, as
-    the reference's kernel computes it (kv padded to the block and
-    masked with k_pos < seq_k)."""
+def test_cross_attention_lengths_match_the_reference(sq, sk, causal, window,
+                                                     dtype, atol):
+    """Attention with Sq != Sk (GQA n_rep 2) as the reference's kernel
+    computes it: positions 0..Sq-1 and 0..Sk-1 aligned top-left, kv
+    padded to the block and masked with k_pos < seq_k, then by
+    ``causal`` and ``window``; a row that sees no key is the mean of V
+    over the padded key range."""
     arrays = qkv_cross(1, sq, sk, 4, 2, 64, seed=sq + sk)
     jx = [jnp.asarray(a).astype(dtype) for a in arrays]
-    ro = ref_ops.flash_attention(*jx, causal=False, window=None)
+    ro = np.asarray(ref_ops.flash_attention(
+        *jx, causal=causal, window=window).astype(jnp.float32))
     tt = [torch.from_numpy(a).to(TORCH[dtype]) for a in arrays]
-    po = ops.flash_attention(*tt, causal=False, window=None)
+    po = ops.flash_attention(*tt, causal=causal, window=window)
     assert po.dtype == TORCH[dtype] and po.shape == tt[0].shape
-    np.testing.assert_allclose(po.float().numpy(),
-                               np.asarray(ro.astype(jnp.float32)),
-                               atol=atol, rtol=atol)
+    np.testing.assert_allclose(po.float().numpy(), ro, atol=atol, rtol=atol)
+    empty = empty_rows(sq, sk, window)
+    if empty.any():
+        v = arrays[2].astype(np.float64).repeat(2, axis=2)
+        pad = -sk % min(128, max(8, sk))
+        mean = v.sum(axis=1, keepdims=True) / (sk + pad)
+        np.testing.assert_allclose(ro[:, empty], np.broadcast_to(
+            mean, ro[:, empty].shape), atol=atol, rtol=atol)
 
 
-@pytest.mark.parametrize("causal,window", [(True, None), (True, 16),
-                                           (False, 16)])
+#: what the attention still refuses: (Sq, Sk, causal, window)
+REFUSED = [pytest.param(40, 0, True, None, "no position", id="no-keys"),
+           pytest.param(40, 0, False, None, "no position",
+                        id="no-keys-non-causal"),
+           pytest.param(40, 72, True, 0, "window", id="window-0")]
+
+
+@pytest.mark.parametrize("sq,sk,causal,window,match", REFUSED)
 @pytest.mark.parametrize("fn", [fa.flash_attention, fa.flash_attention_cuda,
                                 fa.flash_attention_plain])
-def test_causal_or_windowed_lengths_must_match(fn, causal, window):
-    """Sq != Sk stays refused wherever a row could see no key."""
-    q, k, v = (torch.from_numpy(a) for a in qkv_cross(1, 40, 72, 4, 2, 32))
-    with pytest.raises(ValueError, match="sequence length"):
+def test_no_keys_or_a_window_below_one_are_refused(fn, sq, sk, causal,
+                                                   window, match):
+    """Any Sq and Sk >= 1 are taken; a k/v of no position and a window
+    below one are refused before any implementation runs."""
+    q, k, v = (torch.from_numpy(a) for a in qkv_cross(1, sq, sk, 4, 2, 32))
+    with pytest.raises(ValueError, match=match):
         fn(q, k, v, causal=causal, window=window)
 
 
@@ -311,8 +351,14 @@ def test_kernel_matches_plain_version_on_the_card():
                                             window=window)
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.float().cpu().numpy(), **tol)
-    # cross-attention: non-causal, Sq != Sk, neither a multiple of a tile
-    for sq, sk, hd in [(1000, 1500, 64), (1500, 1000, 128), (40, 72, 80)]:
+    # Sq != Sk, neither a multiple of a tile: cross-attention, then
+    # causal and windowed calls, rows that see no key among them
+    for sq, sk, causal, window, hd in [
+            (1000, 1500, False, None, 64), (1500, 1000, False, None, 128),
+            (40, 72, False, None, 80), (40, 72, True, None, 80),
+            (72, 40, True, None, 64), (72, 40, False, 8, 80),
+            (40, 72, True, 16, 64), (300, 200, True, 16, 80),
+            (1500, 1000, True, 300, 128)]:
         arrays = qkv_cross(1, sq, sk, 8, 2, hd, seed=sq)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in arrays)
@@ -320,9 +366,10 @@ def test_kernel_matches_plain_version_on_the_card():
             assert fa.uses_tensor_cores(q, k, v) is tc
             tol = BF16_TWO_ULPS if tc else {"atol": 2e-5, "rtol": 2e-5}
             tc_before = fa.TC_LAUNCHES
-            got = fa.flash_attention(q, k, v, causal=False)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             assert fa.TC_LAUNCHES == tc_before + int(tc)
-            want = fa.flash_attention_plain(q, k, v, causal=False)
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.float().cpu().numpy(), **tol)

@@ -66,7 +66,8 @@ def worlds(tmp_path_factory):
     concurrently."""
     base = tmp_path_factory.mktemp("ranks")
     jobs = {2: ["ring", "ring_grad", "ep", "attention", "attention_rkv"],
-            4: ["ring", "ring_grad", "ep", "fsdp_step", "decode"]}
+            4: ["ring", "ring_grad", "ep", "fsdp_step", "decode",
+                "tp_step", "serve_decode"]}
     with ThreadPoolExecutor(2) as pool:
         futures = {n: pool.submit(ranks.run, jobs[n], n, base / f"w{n}")
                    for n in jobs}
@@ -548,8 +549,10 @@ def test_decode_on_a_placed_cache_equals_the_plain_decode(worlds, name):
 
 @pytest.mark.parametrize("arch", ranks.FSDP_FAMILIES + ("fsdp_cp",))
 def test_fsdp_step_of_each_family_on_a_2x2_mesh(worlds, arch):
-    """The SSM family (its block on each rank's batch shard, weights
-    whole), the audio enc-dec, the VLM, and qwen2 under the ``fsdp_cp``
+    """The SSM family (its block split over ``model`` by heads, weights
+    entering whole), the hybrid (the same SSM split beside attention and
+    the gather MoE), the audio enc-dec, the VLM, and qwen2 under the
+    ``fsdp_cp``
     mapping (the sequence over ``model``, weights whole, K/V gathered):
     loss and gradient norm within two fp32 ulps of the plain step's (a
     shard's products sum in another order than the whole batch's)."""
@@ -559,6 +562,37 @@ def test_fsdp_step_of_each_family_on_a_2x2_mesh(worlds, arch):
             want = o[f"fsdp_step/{arch}/want_{k}"]
             assert abs(o[f"fsdp_step/{arch}/{k}"] - want) \
                 <= 2 * np.spacing(want), k
+
+
+@pytest.mark.parametrize("arch", sorted(ranks.TP_STEPS))
+def test_train_step_with_one_head_a_rank_equals_the_plain_step(worlds,
+                                                                arch):
+    """t5's train step widened to one attention head a ``model`` rank,
+    under the dry run's Megatron-SP options: the attention hands its
+    gradients back to DTensor contiguous, so the backward's folds of
+    (B, S, d) run, and the loss and gradient norm are the plain step's
+    within two fp32 ulps."""
+    _, outs = worlds[4]
+    for o in outs:
+        for k in ("loss", "grad_norm"):
+            want = o[f"tp_step/{arch}/want_{k}"]
+            assert abs(o[f"tp_step/{arch}/{k}"] - want) \
+                <= 2 * np.spacing(want), k
+
+
+@pytest.mark.parametrize("arch", sorted(ranks.SERVE_DECODE))
+def test_serve_decode_on_a_placed_cache_equals_the_plain_decode(worlds,
+                                                                arch):
+    """Greedy decode on a (2, 2) mesh as the dry run places it: the MoE's
+    ``gather`` combine on DTensors, and the enc-dec's cross-attention
+    with heads that do not divide ``model`` (its q gathered, its K/V
+    split over the sequence and attended in parts). The logits equal
+    the plain decode's at every step (fp32, 1e-5)."""
+    _, outs = worlds[4]
+    for o in outs:
+        np.testing.assert_allclose(o[f"serve_decode/{arch}/got"],
+                                   o[f"serve_decode/{arch}/want"],
+                                   atol=1e-5, rtol=1e-5)
 
 
 def test_attention_refuses_a_sharded_head_dim():

@@ -41,7 +41,13 @@ Jobs (each keyed ``<job>/...`` in the outputs):
   parameters placed by ``param_specs(fsdp_axes="data")``, the moments by
   ``zero1_specs``, the batch over ``data``, against the plain step; the
   steps of :data:`FSDP_FAMILIES` likewise; and the qwen2 step under the
-  dry run's ``fsdp_cp`` mapping (port only).
+  dry run's ``fsdp_cp`` mapping (port only);
+* ``tp_step``: the train steps of :data:`TP_STEPS` on a (2, 2) mesh under
+  the dry run's own options, one attention head a rank, against the
+  plain step (port only);
+* ``serve_decode``: greedy decode of :data:`SERVE_DECODE`'s MoE and
+  enc-dec configs on a (2, 2) mesh, parameters and cache placed as the
+  dry run places them, against the plain steps (port only).
 """
 import os
 import pathlib
@@ -511,8 +517,11 @@ def _fsdp_cp_step(mesh):
 
 
 #: the other families' smoke steps of the ``fsdp_step`` job (naive
-#: attention): the SSM block on batch shards, the enc-dec and the VLM
-FSDP_FAMILIES = ("mamba2_2_7b", "whisper_tiny", "qwen2_vl_72b")
+#: attention): the SSM block split over ``model`` by heads (alone, and
+#: in the hybrid beside attention and the gather MoE), the enc-dec and
+#: the VLM
+FSDP_FAMILIES = ("mamba2_2_7b", "jamba_v0_1_52b", "whisper_tiny",
+                 "qwen2_vl_72b")
 
 
 def _fsdp_family_step(mesh, arch):
@@ -545,11 +554,125 @@ def _fsdp_family_step(mesh, arch):
             for k in ("loss", "grad_norm")}
 
 
+#: the ``tp_step`` job's configs: the smoke config of each widened so
+#: that ``model`` (2 ranks) holds one attention head a rank (t5's
+#: full-width cell on 16 x 16 holds one of 16), under the dry run's
+#: Megatron-SP options at seq 64, batch 4
+TP_STEPS = {"t5_large": dict(d_model=128, n_heads=2, n_kv_heads=2)}
+
+
+def port_tp_step(rank, world):
+    """The train step of each :data:`TP_STEPS` config on a (2, 2) mesh
+    under the dry run's ``model_options`` (the residual stream's
+    sequence over ``model``, attention heads over ``model``, FSDP over
+    ``data``, ZeRO-1), in fp32, against the plain step (port only)."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig, get_config, smoke_config
+    from repro_torch.launch.dryrun import model_options
+    from repro_torch.models.api import build_model, make_batch
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    mesh = init_device_mesh("cpu", (2, world // 2),
+                            mesh_dim_names=("data", "model"))
+    shape = ShapeConfig("tp_step", 64, 4, "train")
+    out = {}
+    for arch, widths in TP_STEPS.items():
+        cfg = dataclasses.replace(smoke_config(get_config(arch)), **widths)
+        opts = dataclasses.replace(model_options(cfg, shape, mesh),
+                                   dtype=torch.float32)
+        plain = dataclasses.replace(opts, act_spec=None, qkv_spec=None,
+                                    kv_spec=None)
+        params = build_model(cfg, opts).init(
+            torch.Generator().manual_seed(0), "cpu")
+        state = opt.init(params)
+        batch = make_batch(cfg, shape, torch.Generator().manual_seed(1),
+                           "cpu", opts)
+        _, _, want = make_train_step(cfg, plain)(params, state, batch)
+        pspecs = sh.param_specs(params, mesh, fsdp_axes="data")
+        ospecs = sh.zero1_specs(state, opt.state_specs(pspecs), mesh)
+        step = make_train_step(cfg, opts, grad_specs=pspecs)
+        with sh.use_mesh(mesh):
+            _, _, got = step(sh.distribute_tree(params, pspecs, mesh),
+                             sh.distribute_tree(state, ospecs, mesh),
+                             sh.distribute_tree(batch, sh.batch_specs(
+                                 batch, mesh, ("data",)), mesh))
+        out.update({f"tp_step/{arch}/{w}{k}": m[k].numpy()
+                    for w, m in (("", got), ("want_", want))
+                    for k in ("loss", "grad_norm")})
+    return out
+
+
+#: the ``serve_decode`` job's configs (smoke, with their overrides): the
+#: MoE model, whose FFN takes ``moe_impl="gather"`` in decode (its
+#: combine on DTensors), and the enc-dec audio model with 3 heads, which
+#: do not divide ``model`` (2 ranks): the cross-attention's q is
+#: gathered and its K/V cache split over the sequence
+SERVE_DECODE = {"qwen3_moe_30b_a3b": {},
+                "whisper_tiny": dict(d_model=48, n_heads=3, n_kv_heads=3)}
+SERVE_BATCH, SERVE_SEQ, SERVE_FRAMES = 4, 16, 16
+
+
+def port_serve_decode(rank, world):
+    """Greedy decode steps of each :data:`SERVE_DECODE` config with its
+    parameters (FSDP over ``data``) and its cache placed on a (2, 2)
+    mesh as the dry run places them (``cache_specs(seq_axis="data")``),
+    against the plain steps, in fp32 (port only)."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig, get_config, smoke_config
+    from repro_torch.models.api import build_model, make_batch
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.step import make_serve_step
+    from repro_torch.train.tree import map_leaves
+    mesh = init_device_mesh("cpu", (2, world // 2),
+                            mesh_dim_names=("data", "model"))
+    bax = ("data",)
+    out = {}
+    for arch, widths in SERVE_DECODE.items():
+        cfg = dataclasses.replace(smoke_config(get_config(arch)), **widths)
+        opts = ModelOptions(dtype=torch.float32)
+        params = build_model(cfg, opts).init(
+            torch.Generator().manual_seed(0), "cpu")
+        shape = ShapeConfig("serve", SERVE_SEQ, SERVE_BATCH, "decode")
+        batch = make_batch(cfg, shape, torch.Generator().manual_seed(1),
+                           "cpu", opts)
+        cache, tok = batch["cache"], batch["batch"]["tokens"]
+        cache["pos"].zero_()
+        dcache = sh.distribute_tree(map_leaves(torch.clone, cache),
+                                    sh.cache_specs(cache, mesh, bax,
+                                                   seq_axis="data"), mesh)
+        dparams = sh.distribute_tree(params, sh.param_specs(
+            params, mesh, fsdp_axes="data"), mesh)
+        step = make_serve_step(cfg, opts)
+        got, want = [], []
+        dtok = tok
+        for _ in range(DECODE_STEPS):
+            logits, cache = step(params, cache, {"tokens": tok})
+            with sh.use_mesh(mesh):
+                dlogits, dcache = step(dparams, dcache, {"tokens": dtok})
+            want.append(logits.float().numpy())
+            got.append(dlogits.full_tensor().float().numpy())
+            tok = dtok = logits.argmax(-1).to(torch.int32)[:, None]
+        out[f"serve_decode/{arch}/got"] = np.stack(got)
+        out[f"serve_decode/{arch}/want"] = np.stack(want)
+    return out
+
+
 PORT_JOBS = {"ring": port_ring, "ring_grad": port_ring_grad, "ep": port_ep,
              "psum": port_psum, "placements": port_placements, "attention": port_attention,
              "attention_rkv": port_attention_replicated_kv,
              "decode": port_decode,
-             "fsdp_step": port_fsdp_step}
+             "fsdp_step": port_fsdp_step, "tp_step": port_tp_step,
+             "serve_decode": port_serve_decode}
 
 
 def rank_main(jobs, rank, world, store, out_path):

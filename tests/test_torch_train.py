@@ -796,6 +796,29 @@ def test_score_products_on_the_tensor_cores_are_fp32_sums():
 
 
 @pytest.mark.gpu
+def test_naive_attention_trains_in_bf16_on_the_card(monkeypatch):
+    """The naive attention (``auto`` at 2048 keys or fewer) in bf16 under
+    autograd on the card: its score product runs on the tensor cores and
+    its backward is the upcast product's, so the gradients equal those of
+    the same call on the CPU (fp32 sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 64, h, 32), generator=g).to(torch.bfloat16)
+               for h in (4, 2, 2))
+    pos = torch.arange(64).expand(2, 64)
+
+    def grads(dev):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        L.attention_naive(*leaves, pos.to(dev), pos.to(dev), True,
+                          None).float().square().sum().backward()
+        return [t.grad.float().cpu() for t in leaves]
+    for got, want in zip(grads("cuda"), grads("cpu")):
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
 def test_a_train_step_through_the_kernel_raises_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
