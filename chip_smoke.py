@@ -110,8 +110,14 @@ Around that it
   ``flash_torch``'s, the roofline held to the train phase's measured
   step, and each of ``DRYRUN_CELLS`` traced at full width on 256 or 512
   fake ranks in a child process, gated on its three roofline counts
-  > 0 and, where ``DRYRUN_REFERENCE_FLOPS`` has the reference's count,
-  on its FLOPs a device within 10 % of it.
+  > 0 and, where ``DRYRUN_REFERENCE_FLOPS`` and ``DRYRUN_REFERENCE_COLL``
+  have the reference's counts, on its collective bytes a device at most
+  10 % over the reference's and its FLOPs within 10 % of them (decode)
+  or at most 10 % over (where the port skips empty block pairs or the
+  reference does work the port does not); those last cells' FLOPs are
+  also held within 10 % of the port's own count as the CPU traces it
+  (``DRYRUN_PORT_FLOPS``), so the card's torch cannot do more work
+  under the one-sided bar.
 
 Every phase prints one JSON object on a line of its own (``env``,
 ``build``, then ``kernels``, ``profile``, ``model``, ``serve``,
@@ -2953,7 +2959,13 @@ def phase_parallel(mesh, ep_row) -> dict:
 # its 64 (the trace grows with the depth), the rest are traced whole.
 # The decode cells run the MoE's gather and the enc-dec's cross-attention
 # on DTensors (whisper's 6 heads over 16 ranks), mamba2 its SSM blocks
-# split over `model` by heads, t5 one attention head a rank.
+# split over `model` by heads, t5 one attention head a rank. The last six
+# hold one repair each to the reference: qwen2's train step (the
+# vocab-parallel cross-entropy, its 12 heads padded to 16), gpt2's (a
+# vocabulary of 50257, each rank's rows by the whole head), phi3's
+# prefill (40 heads padded to 48), the SSM decode step where the cache is
+# placed (mamba2; jamba, its state split by its batch) and jamba's
+# prefill (the dense FFN split over `model`).
 DRYRUN_CELLS = (("h2o_danube_1_8b", "train_4k", "single", None),
                 ("h2o_danube_1_8b", "train_4k", "multi", None),
                 ("qwen3_moe_30b_a3b", "prefill_32k", "single", 4),
@@ -2961,17 +2973,57 @@ DRYRUN_CELLS = (("h2o_danube_1_8b", "train_4k", "single", None),
                 ("qwen3_moe_30b_a3b", "decode_32k", "single", 2),
                 ("whisper_tiny", "decode_32k", "single", None),
                 ("mamba2_2_7b", "train_4k", "single", 16),
-                ("t5_large", "train_4k", "single", None))
+                ("t5_large", "train_4k", "single", None),
+                ("qwen2_1_5b", "train_4k", "single", 1),
+                ("gpt2_345m", "train_4k", "single", 1),
+                ("phi3_medium_14b", "prefill_32k", "single", 1),
+                ("mamba2_2_7b", "decode_32k", "single", 1),
+                ("jamba_v0_1_52b", "decode_32k", "single", 8),
+                ("jamba_v0_1_52b", "prefill_32k", "single", 8))
 DRYRUN_TIMEOUT = 600
-#: per-device FLOPs of cells of DRYRUN_CELLS as the reference's own dry
-#: run counts them (``repro.launch.dryrun``, XLA's ``hlo_stats``, on
-#: 16 x 16 at the same depth), and the port's trace on the CPU with
-#: torch 2.13 too; ``tests/test_torch_dryrun_sweep.py`` holds the two at
-#: one layer. Held here within DRYRUN_FLOPS_TOL on the card's torch,
-#: whose DTensor chooses other strategies.
+#: per-device FLOPs and collective bytes of cells of DRYRUN_CELLS as the
+#: reference's own dry run counts them (``repro.launch.dryrun``, XLA's
+#: ``hlo_stats``, on 16 x 16 at the same depth), made by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/test_torch_dryrun_ref.py \
+#:     --production ref.json qwen3_moe_30b_a3b:decode_32k:2 \
+#:     whisper_tiny:decode_32k:4 qwen2_1_5b:train_4k:1 gpt2_345m:train_4k:1 \
+#:     phi3_medium_14b:prefill_32k:1 mamba2_2_7b:decode_32k:1 \
+#:     jamba_v0_1_52b:decode_32k:8 jamba_v0_1_52b:prefill_32k:8
+#: (``flops`` and ``total``); ``tests/test_torch_dryrun_held_*.py`` hold
+#: every cell at one layer to the live reference on the CPU. Held here
+#: on the card's torch, whose DTensor chooses other strategies: the
+#: collective bytes at most DRYRUN_TOL over; the FLOPs within DRYRUN_TOL
+#: where no block pair is skipped (decode), at most DRYRUN_TOL over where
+#: the port's blockwise attention skips pairs (train, prefill) or the
+#: reference does work the port does not (gpt2's head on every chunk of
+#: each rank's rows, jamba's dense down product whole on every rank).
 DRYRUN_REFERENCE_FLOPS = {("qwen3_moe_30b_a3b", "decode_32k"): 3022782464,
-                          ("whisper_tiny", "decode_32k"): 477911040}
-DRYRUN_FLOPS_TOL = 0.10
+                          ("whisper_tiny", "decode_32k"): 477911040,
+                          ("qwen2_1_5b", "train_4k"): 7774427676672,
+                          ("gpt2_345m", "train_4k"): 10805265301504,
+                          ("phi3_medium_14b", "prefill_32k"): 10299331575808,
+                          ("mamba2_2_7b", "decode_32k"): 2100327424,
+                          ("jamba_v0_1_52b", "decode_32k"): 53523003392,
+                          ("jamba_v0_1_52b", "prefill_32k"): 59755041128448}
+DRYRUN_REFERENCE_COLL = {("qwen3_moe_30b_a3b", "decode_32k"): 4884640.0,
+                         ("whisper_tiny", "decode_32k"): 4981152.0,
+                         ("qwen2_1_5b", "train_4k"): 5474411007.25,
+                         ("gpt2_345m", "train_4k"): 2986530800.25,
+                         ("phi3_medium_14b", "prefill_32k"): 4865392640.0,
+                         ("mamba2_2_7b", "decode_32k"): 121020.0,
+                         ("jamba_v0_1_52b", "decode_32k"): 127182752.0,
+                         ("jamba_v0_1_52b", "prefill_32k"): 25214934592.0}
+#: per-device FLOPs as run (the causal skip in) of the cells of
+#: DRYRUN_REFERENCE_FLOPS whose bar above is one-sided, as the port's own
+#: dry run traces them on the CPU (torch 2.13.0+cpu), made by
+#:   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch <arch> \
+#:     --shape <shape> --multi-pod single --layers <layers> --device cpu
+#: (``hlo_flops/dev``): held within DRYRUN_TOL, two-sided, on the card.
+DRYRUN_PORT_FLOPS = {("qwen2_1_5b", "train_4k"): 7.542e12,
+                     ("gpt2_345m", "train_4k"): 1.836e12,
+                     ("phi3_medium_14b", "prefill_32k"): 8.702e12,
+                     ("jamba_v0_1_52b", "prefill_32k"): 2.983e13}
+DRYRUN_TOL = 0.10
 # the roofline held to the train phase's measured step (its model,
 # batch and options): traced FLOPs == FlopCounterMode's, the predicted
 # peak within 10 % of max_memory_allocated, the bound <= the median step
@@ -3028,10 +3080,21 @@ def finish_dryrun_cells(started) -> list:
             check(all(c > 0 for c in counts),
                   f"{arch}/{shape}/{pods}: a roofline term is not > 0: {row}")
             want = DRYRUN_REFERENCE_FLOPS.get((arch, shape))
+            low = (1 - DRYRUN_TOL) * want if want and shape.startswith(
+                ("decode", "long")) else 0.0
             check(want is None
-                  or abs(counts[0] - want) <= DRYRUN_FLOPS_TOL * want,
+                  or low <= counts[0] <= (1 + DRYRUN_TOL) * want,
                   f"{arch}/{shape}/{pods}: {counts[0]:.4e} FLOPs a device, "
                   f"the reference's {want}")
+            port = DRYRUN_PORT_FLOPS.get((arch, shape))
+            check(port is None or abs(counts[0] - port) <= DRYRUN_TOL * port,
+                  f"{arch}/{shape}/{pods}: {counts[0]:.4e} FLOPs a device, "
+                  f"the port's on the CPU {port}")
+            want_coll = DRYRUN_REFERENCE_COLL.get((arch, shape))
+            check(want_coll is None
+                  or counts[2] <= (1 + DRYRUN_TOL) * want_coll,
+                  f"{arch}/{shape}/{pods}: {counts[2]:.4e} collective bytes "
+                  f"a device, the reference's {want_coll}")
             traced = re.search(r"trace ([\d.]+)s", stdout)
             peak = re.search(r"memory: peak (\S+) B, arguments (\S+) B",
                              stdout)
@@ -3043,8 +3106,10 @@ def finish_dryrun_cells(started) -> list:
                          "t_memory_ms": terms[1], "t_coll_ms": terms[2],
                          "flops_per_device": counts[0],
                          "reference_flops_per_device": want,
+                         "cpu_flops_per_device": port,
                          "bytes_per_device": counts[1],
                          "collective_bytes_per_device": counts[2],
+                         "reference_collective_bytes_per_device": want_coll,
                          "dominant": fields["dominant"],
                          "peak_bytes_per_device": float(peak.group(1)),
                          "argument_bytes": float(peak.group(2)),

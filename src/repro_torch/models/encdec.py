@@ -23,13 +23,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import DEFAULT_OPTIONS, ModelOptions
-from repro_torch.parallel.sharding import (gather_dim, gather_fsdp,
-                                           is_dtensor, settle)
+from repro_torch.parallel.sharding import gather_fsdp, is_dtensor, settle
 from repro_torch.models.lm import (EMPTY_POS, _attn_block,
                                    _attn_decode_block, _attn_shapes,
-                                   _chunked_ce, _ffn_block, _ffn_shapes,
+                                   cross_entropy, _ffn_block, _ffn_shapes,
                                    _head, _init_tree, _kv_cache,
                                    _merge_heads, _split_heads, embed_lookup,
+                                   embed_tokens,
                                    layer_params, run_layer, unstack_layers)
 
 
@@ -105,7 +105,7 @@ def decode_train(cfg: ArchConfig, params, enc_out: torch.Tensor,
     b, t = tokens.shape
     positions = _positions(b, t, tokens.device)
     enc_pos = _positions(b, enc_out.shape[1], tokens.device)
-    h = embed_lookup(params["embed"], tokens).to(opts.dtype)
+    h = embed_tokens(params, tokens, opts).to(opts.dtype)
     for lp in unstack_layers(params["dec_layers"], cfg.n_layers):
         h = run_layer(opts, _dec_layer, cfg, lp, h, positions, enc_out,
                       enc_pos, opts)
@@ -115,7 +115,7 @@ def decode_train(cfg: ArchConfig, params, enc_out: torch.Tensor,
 def _encoder_input(cfg, params, batch, opts):
     if cfg.audio_stub:
         return batch["frame_embeds"].to(opts.dtype)
-    return embed_lookup(params["embed"], batch["tokens_enc"]).to(opts.dtype)
+    return embed_tokens(params, batch["tokens_enc"], opts).to(opts.dtype)
 
 
 @torch.no_grad()
@@ -134,9 +134,8 @@ def loss_fn(cfg: ArchConfig, params, batch, opts=DEFAULT_OPTIONS):
     enc_out = encode(cfg, params, _encoder_input(cfg, params, batch, opts),
                      opts)
     h = decode_train(cfg, params, enc_out, batch["tokens"], opts)
-    h = gather_dim(L.rmsnorm(h, gather_fsdp(params["final_norm"])), 1)
-    # (gathered: the CE chunks the sequence)
-    return _chunked_ce(h, _head(cfg, params), batch["labels"])
+    h = L.rmsnorm(h, gather_fsdp(params["final_norm"]))
+    return cross_entropy(h, _head(cfg, params), batch["labels"])
 
 
 # --------------------------------------------------------------------------

@@ -509,15 +509,22 @@ def _first_slot(mesh, seq_dims, s_loc: int) -> int:
 
 def _seq_reduce(mesh, seq_dims):
     """:func:`attention_decode`'s ``reduce`` over the ranks that hold the
-    parts of a split sequence (None for a whole one)."""
+    parts of a split sequence (None for a whole one): one all-reduce,
+    over the mesh dimensions flattened into one where the sequence is
+    split over several (a ring over all their ranks moves less than a
+    ring over each in turn)."""
     import torch.distributed._functional_collectives as funcol
     if not seq_dims:
         return None
+    group = (mesh, seq_dims[0])
+    if len(seq_dims) > 1:
+        from torch.utils._python_dispatch import _disable_current_modes
+        names = mesh.mesh_dim_names
+        with _disable_current_modes():   # the mesh's own tensors are real
+            group = mesh[tuple(names[i] for i in seq_dims)]._flatten()
 
     def reduce(t, op):
-        for i in seq_dims:
-            t = funcol.all_reduce(t, op, (mesh, i))
-        return t
+        return funcol.all_reduce(t, op, group)
     return reduce
 
 

@@ -230,7 +230,8 @@ def _head(cfg: ArchConfig, params: Params) -> torch.Tensor:
     return gather_fsdp(params["head"])
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 pending: bool = False) -> torch.Tensor:
     """``table[tokens]``. A DTensor table has its FSDP shards gathered
     first (``gather_fsdp``), then is looked up on each rank's shards
     through ``local_map``, as Megatron's vocab-parallel embedding does:
@@ -238,7 +239,9 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     outside it, summed over the vocabulary's mesh dimensions (one row
     and zeros: the sum is the row's bits). DTensor's own masked
     lookup refuses a table sharded in two dimensions, and its backward
-    (``index_put`` of a sequence-sharded gradient) fails in torch 2.11."""
+    (``index_put`` of a sequence-sharded gradient) fails in torch 2.11.
+    With ``pending`` the sum is left pending, for the caller to reduce
+    into the placement it needs."""
     if not is_dtensor(table):
         return table[tokens.long()]
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -265,11 +268,26 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     fn = local_map(body, out_placements=out,
                    in_placements=(table.placements, tok),
                    in_grad_placements=(grad, tok), device_mesh=mesh)
+    rows = fn(table, sharding.place(tokens, mesh, tok))
+    if pending:
+        return rows
     # the all-reduce at the lookup's end, as Megatron's: a pending sum
     # left in the residual stream would turn the next column-parallel
     # product into a whole-weight one on every rank
-    return fn(table, sharding.place(tokens, mesh, tok)).redistribute(
-        mesh, tok)
+    return rows.redistribute(mesh, tok)
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor,
+                 opts: ModelOptions) -> torch.Tensor:
+    """The token embeddings as the residual stream starts: with
+    ``opts.act_spec`` and a DTensor table, the lookup's pending sum is
+    reduced straight into the spec's placement (a reduce-scatter where
+    it splits the sequence), as the reference's layer scan carries its
+    input in the layers' output placement; otherwise settled."""
+    table = params["embed"]
+    if opts.act_spec is None or not is_dtensor(table):
+        return embed_lookup(table, tokens)
+    return L.constrain(embed_lookup(table, tokens, pending=True), opts)
 
 
 # --------------------------------------------------------------------------
@@ -320,33 +338,208 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:2], -1)
 
 
+def _uneven_heads(cfg, h: torch.Tensor, opts) -> Optional[int]:
+    """The mesh dimension over which ``opts.qkv_spec`` splits the heads
+    of a DTensor ``h``, where its size does not divide the query heads;
+    else None."""
+    spec = opts.qkv_spec
+    if not is_dtensor(h) or spec is None or not isinstance(spec[2], str):
+        return None
+    names = h.device_mesh.mesh_dim_names or ()
+    if spec[2] not in names:
+        return None
+    tp = names.index(spec[2])
+    n = h.device_mesh.size(tp)
+    return tp if n > 1 and cfg.n_heads % n else None
+
+
+def _rank_heads(n_heads: int, n_kv: int, rank: int, n_ranks: int):
+    """(h0, h1, kv0, kv1): the query heads [h0, h1) that rank ``rank`` of
+    ``n_ranks`` computes when the heads are padded to a multiple of
+    ``n_ranks`` (ceil(n_heads / n_ranks) slots a rank, as XLA pads them;
+    the last ranks' slots may be padding), and the KV heads [kv0, kv1)
+    they read."""
+    per = -(-n_heads // n_ranks)
+    h0 = min(rank * per, n_heads)
+    h1 = min(h0 + per, n_heads)
+    n_rep = n_heads // n_kv
+    kv0 = h0 // n_rep
+    return h0, h1, kv0, (h1 - 1) // n_rep + 1 if h1 > h0 else kv0
+
+
+def _rope_attend(cfg, q, k, v, q_pos, k_pos, opts, causal, cross):
+    """The attention of heads q (B, Sq, h, hd) over k, v: RoPE at the
+    positions unless ``cross`` (which has no window either)."""
+    if not cross:
+        q = L.apply_rope(q, q_pos, cfg.rope_theta)
+        k = L.apply_rope(k, q_pos, cfg.rope_theta)
+    return L.attention(q, k, v, q_pos, k_pos, causal=causal,
+                       window=None if cross else cfg.sliding_window,
+                       opts=opts)
+
+
+def _exchange(pieces, shapes, dim, mesh, tp):
+    """One ``all_to_all_single`` over mesh dimension ``tp``: ``pieces[j]``
+    goes to rank j, a tensor of ``shapes[j]`` comes from it; the
+    received ones are concatenated along ``dim`` in rank order."""
+    import math
+
+    import torch.distributed._functional_collectives as funcol
+    sizes = [math.prod(x) for x in shapes]
+    got = funcol.all_to_all_single_autograd(
+        torch.cat([x.reshape(-1) for x in pieces]), sizes,
+        [x.numel() for x in pieces], (mesh, tp))
+    if isinstance(got, funcol.AsyncCollectiveTensor):
+        got = got.wait()
+    return torch.cat([x.view(shape) for x, shape in
+                      zip(got.split(sizes), shapes)], dim)
+
+
+def _attn_on_shards(cfg, p, h, src, q_pos, k_pos, opts, causal, cross, tp):
+    """The attention block's projections and attention, without the
+    residual, over DTensors whose query heads mesh dimension ``tp`` does
+    not divide, through ``local_map``, as XLA splits such a block: each
+    rank projects its rows of the sequence at every head (:func:`_qkv`),
+    one all-to-all over ``tp`` gives each rank its slots of the heads
+    padded to a multiple of the dimension's size (:func:`_rank_heads`;
+    the KV heads they read) at every row, it attends them
+    (:func:`_rope_attend`), and a second all-to-all returns each row's
+    heads to the rank of the row, which multiplies them by ``wo``: each
+    product is computed once across the mesh. The result is split over
+    ``tp`` by rows. The weights enter whole, so every placement table
+    stays the reference's; their gradients, a rank's rows' share, are
+    summed over the batch's and the heads' mesh dimensions. Batch shards
+    (dim 0) are kept."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = h.device_mesh
+    batch = [Shard(0) if q.is_shard(0) else Replicate()
+             for q in h.placements]
+    rows = [Shard(1) if i == tp else q for i, q in enumerate(batch)]
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if q.is_shard() or i == tp else Replicate()
+            for i, q in enumerate(batch)]
+    names = sorted(k for k in p if k != "ln")
+    n, hd = mesh.size(tp), cfg.head_dim
+    slots = [_rank_heads(cfg.n_heads, cfg.n_kv_heads, r, n) for r in range(n)]
+    q_cols = [range(h0 * hd, h1 * hd) for h0, h1, _, _ in slots]
+    kv_cols = [range(k0 * hd, k1 * hd) for _, _, k0, k1 in slots]
+    q_rows, k_rows = ([len(sharding.chunk_range(t.shape[1], mesh, tp,
+                                                Shard(1), r))
+                       for r in range(n)] for t in (h, src))
+
+    def body(h, src, q_pos, k_pos, *ws):
+        w = dict(zip(names, ws))
+        me = mesh.get_local_rank(tp)
+        h0, h1, kv0, kv1 = slots[me]
+        b = h.shape[0]
+
+        def to_heads(t, rows, cols):     # my rows of all → all rows of mine
+            return _exchange([t[..., c.start:c.stop] for c in cols],
+                             [(b, r, len(cols[me])) for r in rows], 1,
+                             mesh, tp)
+
+        q, k, v = _qkv(cfg, w, h, src)
+        q = to_heads(q, q_rows, q_cols)
+        k, v = (to_heads(t, k_rows, kv_cols) for t in (k, v))
+        if h1 == h0:       # padding only: k and v enter the graph too
+            q = torch.cat([q, k, v], -1)
+        else:
+            sq, sk = q.shape[1], k.shape[1]
+            q = q.reshape(b, sq, h1 - h0, hd)
+            k, v = (t.reshape(b, sk, kv1 - kv0, hd) for t in (k, v))
+            # the KV head of each query head; repeated where a rank's
+            # heads do not read whole groups of them
+            n_rep = cfg.n_heads // cfg.n_kv_heads
+            idx = [g // n_rep - kv0 for g in range(h0, h1)]
+            per = len(idx) // (kv1 - kv0)
+            if idx != [j // max(per, 1) for j in range(len(idx))]:
+                k, v = k[:, :, idx], v[:, :, idx]
+            q = _rope_attend(cfg, q, k, v, q_pos, k_pos, opts, causal,
+                             cross).reshape(b, sq, -1)
+        # all rows of my heads → my rows of all heads, in head order
+        starts = [sum(q_rows[:r]) for r in range(n)]
+        o = _exchange([q[:, s0:s0 + r] for s0, r in zip(starts, q_rows)],
+                      [(b, q_rows[me], len(c)) for c in q_cols], 2,
+                      mesh, tp)
+        return o @ w["wo"]
+
+    fn = local_map(body, out_placements=rows,
+                   in_placements=(rows, rows, batch, batch,
+                                  *[whole] * len(names)),
+                   in_grad_placements=(rows, rows, batch, batch,
+                                       *[grad] * len(names)),
+                   device_mesh=mesh)
+    return fn(*(sharding.place(t, mesh, pl) for t, pl in
+                ((h, rows), (src, rows), (q_pos, batch), (k_pos, batch))),
+              *(sharding.place(p[k], mesh, whole) for k in names))
+
+
 def _attn_block(cfg, p, x, positions, opts, causal=True,
                 kv: Optional[tuple] = None):
     """Pre-norm attention with residual. kv: optional (k_src, k_pos) for
     cross-attention (enc-dec): K/V from ``k_src``, keys at ``k_pos``, no
-    RoPE and no window."""
-    h = _sp_gather(L.rmsnorm(x, p["ln"]), p["wq"])
-    q, k, v = _qkv(cfg, p, h,
-                   None if kv is None else _sp_gather(kv[0], p["wk"]))
-    b, sq = q.shape[:2]
-    sk = k.shape[1]
+    RoPE and no window. Heads that the mesh does not divide go through
+    :func:`_attn_on_shards`."""
+    h = L.rmsnorm(x, p["ln"])
+    tp = _uneven_heads(cfg, h, opts)
+    if tp is not None:
+        o = _attn_on_shards(cfg, p, h, h if kv is None else kv[0], positions,
+                            positions if kv is None else kv[1], opts, causal,
+                            kv is not None, tp)
+        return x + L.constrain(o, opts)
+    h = _sp_gather(h, p["wq"])
+    src = None if kv is None else _sp_gather(kv[0], p["wk"])
+    q, k, v = _qkv(cfg, p, h, src)
     hd = cfg.head_dim
     q = L.constrain_qkv(_split_heads(q, cfg.n_heads, hd), opts)
     k = L.constrain_qkv(_split_heads(k, cfg.n_kv_heads, hd), opts,
                         is_kv=True)
     v = L.constrain_qkv(_split_heads(v, cfg.n_kv_heads, hd), opts,
                         is_kv=True)
-    if kv is None:
-        k_pos = positions
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-    else:
-        k_pos = kv[1]
-    o = L.attention(q, k, v, positions, k_pos, causal=causal,
-                    window=cfg.sliding_window if kv is None else None,
-                    opts=opts)
+    o = _rope_attend(cfg, q, k, v, positions,
+                     positions if kv is None else kv[1], opts, causal,
+                     kv is not None)
     o = L.matmul(_merge_heads(L.constrain_qkv(o, opts)), p["wo"])
     return x + L.constrain(o, opts)
+
+
+#: the dense FFN's leaves and the dimension each splits over ``model``
+#: (column-parallel up and gate, row-parallel down)
+_FFN_SPLIT = {"w_gate": 1, "w_up": 1, "w1": 1, "b1": 0, "w_down": 0,
+              "w2": 0}
+
+
+def _model_split_ffn(p, h, tp_axis: str = "model"):
+    """A dense FFN's DTensor weights split over the ``tp_axis`` mesh
+    dimension, Megatron's way, where they are whole on it and so are
+    ``h``'s rows (a local slice, no collective): the hybrid's dense
+    FFN weights sit in a (period, layer) stack that the reference's
+    positional rule takes for an expert stack and leaves whole on
+    ``model``, and XLA splits their products all the same. A decode
+    step (one token a sequence) keeps them whole, as XLA does: split,
+    they would add an all-reduce a layer to save a product of a few
+    rows. ``p`` as it is otherwise."""
+    if not is_dtensor(h):
+        return p
+    mesh = h.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if tp_axis not in names:
+        return p
+    tp = names.index(tp_axis)
+    n = mesh.size(tp)
+    if n == 1 or h.shape[1] == 1 or h.placements[tp].is_shard() or any(
+            not is_dtensor(p[k]) or not p[k].placements[tp].is_replicate()
+            or p[k].shape[d] % n for k, d in _FFN_SPLIT.items() if k in p):
+        return p
+    from torch.distributed.tensor import Shard
+    out = dict(p)
+    for k, d in _FFN_SPLIT.items():
+        if k in p:
+            place = list(p[k].placements)
+            place[tp] = Shard(d)
+            out[k] = p[k].redistribute(mesh, place)
+    return out
 
 
 def _ffn_block(cfg, p, x, opts):
@@ -358,6 +551,7 @@ def _ffn_block(cfg, p, x, opts):
         y, aux = M.moe_ffn(h, p, cfg.moe, opts.moe_impl, opts)
         return x + L.constrain(y, opts), aux
     h = _sp_gather(h, p["w1"] if "w1" in p else p["w_gate"])
+    p = _model_split_ffn(p, h)
     if "w1" in p:                           # GELU MLP
         y = L.gelu_mlp(h, p["w1"], p["b1"], p["w2"], p["b2"])
     else:                                   # SwiGLU
@@ -374,7 +568,11 @@ def _ssm_on_shards(h, sp, scfg):
     columns of z, x and dt and all of B and C (one group), its conv
     channels, the chunked scan on its heads, the gated norm's sum of
     squares all-reduced over ``model``, its rows of ``out_proj`` (a
-    partial sum over ``model``). The weights enter whole, so the
+    partial sum over ``model``). B and C, which every rank's heads read,
+    are projected by each rank on its rows of the sequence only and
+    all-gathered over ``model`` (where ``model`` divides the sequence),
+    as XLA splits the projection by rows: each column of ``in_proj`` is
+    multiplied once across the mesh. The weights enter whole, so the
     parameter tree keeps the reference's layout and placements; each
     rank slices its heads out (:func:`~repro_torch.models.ssm.
     head_shard`), and the gradients, zero outside a rank's slices, are
@@ -403,10 +601,20 @@ def _ssm_on_shards(h, sp, scfg):
         params = dict(zip(names, ws))
         if tp is None:
             return S.ssm_block(x, params, scfg)
-        params = S.head_shard(params, d, scfg, mesh.get_local_rank(tp),
-                              mesh.size(tp))
+        rank, n = mesh.get_local_rank(tp), mesh.size(tp)
+        params = S.head_shard(params, d, scfg, rank, n)
+
+        def bc(x, w):
+            m = x.shape[1] // n
+            # (the older name of the same gather in torch 2.11)
+            gather = getattr(funcol, "all_gather_single_autograd", None) \
+                or funcol.all_gather_tensor_autograd
+            t = gather(x[:, rank * m:(rank + 1) * m] @ w, 1, (mesh, tp))
+            return t.wait() if isinstance(
+                t, funcol.AsyncCollectiveTensor) else t
+
         return S.ssm_block(x, params, scfg, psum=lambda t: funcol.all_reduce(
-            t, "sum", (mesh, tp)))
+            t, "sum", (mesh, tp)), bc=bc if x.shape[1] % n == 0 else None)
 
     # h's gradient is placed as the output: each rank's heads' share
     fn = local_map(body, out_placements=out,
@@ -464,14 +672,66 @@ def layer_params(lp: Params) -> Params:
 def run_layer(opts: ModelOptions, fn, cfg, lp, *args):
     """``fn(cfg, lp, *args)`` with ``lp`` gathered by :func:`layer_params`
     inside, checkpointed under ``opts.remat`` and autograd (the
-    reference's ``jax.checkpoint`` of a layer; the backward gathers
-    again)."""
+    reference's ``jax.checkpoint`` of a layer); on a mesh the results of
+    the layer's collectives are kept for the backward
+    (:func:`_keep_collectives`)."""
     def body(cfg, lp, *args):
         return fn(cfg, layer_params(lp), *args)
 
     if opts.remat and torch.is_grad_enabled():
-        return checkpoint(body, cfg, lp, *args, use_reentrant=False)
+        keep = _keep_collectives if is_dtensor(args[0]) else \
+            torch.utils.checkpoint.noop_context_fn
+        return checkpoint(body, cfg, lp, *args, use_reentrant=False,
+                          context_fn=keep)
     return body(cfg, lp, *args)
+
+
+_COLLECTIVES = ("_c10d_functional", "_c10d_functional_autograd")
+
+
+def _keep_collectives():
+    """The two contexts of a checkpoint that keeps the results of a
+    layer's collectives and recomputes the rest: recomputed in the
+    backward, each gather and reduction of the layer would cross the
+    links again. The forward's context keeps every collective's result
+    in order; a recompute's hands each back, at its place in that order,
+    instead of running the collective, and raises if the recompute asks
+    for another collective there. A result is handed back once and then
+    freed (kept to the end of the backward, they would hold every
+    layer's at once: mamba2 train_4k's traced peak 11.8 → 49.5 GB); a
+    later recompute (a second backward through the graph) runs that
+    collective again. Torch's selective checkpointing cannot do this:
+    with a policy that saves these ops (``CheckpointPolicy.MUST_SAVE``),
+    torch 2.13 hands back a detached result, so the product after a
+    differentiable collective saves one tensor fewer in the recompute
+    and the checkpoint's own check fails."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    kept = []
+
+    class Keep(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace in _COLLECTIVES:
+                kept.append([func, out])
+            return out
+
+    class Replay(TorchDispatchMode):
+        def __enter__(self):
+            self.at = 0                   # each recompute from the first
+            return super().__enter__()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace not in _COLLECTIVES:
+                return func(*args, **(kwargs or {}))
+            ran, out = kept[self.at] if self.at < len(kept) else (None, None)
+            if ran is not func:
+                raise RuntimeError(f"the recompute of a layer ran {func} "
+                                   f"where its forward ran {ran}")
+            kept[self.at][1] = None
+            self.at += 1
+            return func(*args, **(kwargs or {})) if out is None else out
+
+    return Keep(), Replay()
 
 
 def _stacked_kinds(params: Params) -> Dict[str, Params]:
@@ -517,7 +777,8 @@ def embed_inputs(cfg: ArchConfig, params: Params,
     if cfg.audio_stub and "frame_embeds" in batch:
         parts.append(batch["frame_embeds"].to(opts.dtype))
     if "tokens" in batch:
-        parts.append(embed_lookup(params["embed"], batch["tokens"]))
+        parts.append(embed_tokens(params, batch["tokens"], opts) if not parts
+                     else embed_lookup(params["embed"], batch["tokens"]))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -560,6 +821,140 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     return tot / cnt.clamp(min=1)
 
 
+class _Reduced(torch.autograd.Function):
+    """``t`` all-reduced by ``op`` over the mesh dimensions ``dims``, with
+    the identity for its backward: every rank goes on with the same
+    reduced value (Megatron's reduce "from the model-parallel region"),
+    so each rank's gradient is its own share of the reduced one."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims, op):
+        import torch.distributed._functional_collectives as funcol
+        for i in dims:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """``torch.logsumexp(logits, -1)`` of logits whose last dimension is
+    split over the mesh dimensions ``dims``: the max and the sum of
+    exponentials all-reduced over them, then ``torch.logsumexp``'s own
+    arithmetic (``log(sum(exp(x - max))) + max``) and its backward
+    (``g · exp(x - lse)``, local to each shard), so that on one rank the
+    bits are the plain call's."""
+
+    @staticmethod
+    def forward(ctx, logits, mesh, dims):
+        m = _Reduced.apply(logits.amax(dim=-1, keepdim=True), mesh, dims,
+                           "max")
+        se = _Reduced.apply(torch.exp(logits - m).sum(-1), mesh, dims, "sum")
+        lse = se.log().add(m[..., 0])
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse = ctx.saved_tensors
+        return g[..., None] * (logits - lse[..., None]).exp(), None, None
+
+
+def _vocab_parallel_ce(x: torch.Tensor, head: torch.Tensor,
+                       labels: torch.Tensor, chunk: int = 512):
+    """:func:`_chunked_ce`'s sum of losses and count of labels over a
+    DTensor ``x`` (B, S, d), on each rank's shards through ``local_map``
+    (Megatron's vocab-parallel cross-entropy). Where the head (d, V)
+    splits the vocabulary over a mesh dimension, ``x`` is made whole
+    along it (Megatron-SP's gather before a column-parallel weight) and
+    each chunk's log-sum-exp is reduced over the vocabulary's shards: a
+    local max and sum of exponentials, each all-reduced over them, and
+    the gold logit taken on the shard that holds it and summed over
+    them; the logits are never gathered, and their gradient is local.
+    Elsewhere ``x`` keeps its batch and sequence split: a head whole on
+    every rank of a mesh dimension (a vocabulary that it does not
+    divide) multiplies each rank's rows once, not every row on every
+    rank. A whole sequence is chunked as :func:`_chunked_ce` chunks it
+    (padded to whole chunks); a rank's part of a split one in chunks of
+    at most ``chunk`` rows, unpadded where its length divides or is
+    divided by ``chunk``. Returns the sum and the count, pending sums
+    over the mesh dimensions that split ``x``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    head = sharding.place(head, mesh, [
+        Shard(1) if p.is_shard(1) else Replicate()
+        for p in (head.placements if is_dtensor(head)
+                  else [Replicate()] * mesh.ndim)])
+    vocab = [i for i, p in enumerate(head.placements) if p.is_shard(1)]
+    row = [p if i not in vocab and p.is_shard() and p.dim < 2
+           else Replicate() for i, p in enumerate(x.placements)]
+    out = [Partial() if p.is_shard() else Replicate() for p in row]
+    x_grad = [Partial() if i in vocab else p for i, p in enumerate(row)]
+    head_grad = [Shard(1) if i in vocab else o for i, o in enumerate(out)]
+    split = any(p.is_shard(1) for p in row)
+
+    def body(x, head, labels):
+        first = 0
+        for i in vocab:                  # this rank's first vocabulary row
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+        first *= head.shape[1]
+        c = min(chunk, x.shape[1]) if split else chunk
+        pad = (-x.shape[1]) % c
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-1)
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+        for c0 in range(0, x.shape[1], c):
+            ll = labels[:, c0:c0 + c].long()
+            logits = (x[:, c0:c0 + c] @ head).float()
+            lse = _VocabLogSumExp.apply(logits, mesh, vocab)
+            local = ll - first
+            mine = (local >= 0) & (local < head.shape[1])
+            gold = torch.gather(logits, -1, local.clamp(
+                0, head.shape[1] - 1)[..., None])[..., 0]
+            gold = _Reduced.apply(torch.where(mine, gold, 0.0), mesh, vocab,
+                                  "sum")
+            valid = ll >= 0
+            tot = tot + torch.where(valid, lse - gold, 0.0).sum()
+            cnt = cnt + valid.sum()
+        return tot, cnt
+
+    fn = local_map(body, out_placements=(out, out),
+                   in_placements=(row, head.placements, row),
+                   in_grad_placements=(x_grad, head_grad, row),
+                   device_mesh=mesh)
+    return fn(sharding.place(x, mesh, row), head,
+              sharding.place(labels, mesh, row))
+
+
+def cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of ``x @ head`` against ``labels`` (-1 = no
+    target): :func:`_chunked_ce` on plain tensors, the reference's
+    arithmetic; on DTensors :func:`_vocab_parallel_ce`."""
+    if not is_dtensor(x):
+        return _chunked_ce(x, head, labels)
+    tot, cnt = _vocab_parallel_ce(x, head, labels)
+    return tot / cnt.clamp(min=1)
+
+
+def _pad_prefix(labels: torch.Tensor, n: int) -> torch.Tensor:
+    """``labels`` (B, S) with ``n`` positions of -1 (no target) in front.
+    A DTensor's sequence is made whole and padded on each rank's shard:
+    torch 2.11's DTensor fails to plan the pad of a batch-split tensor."""
+    if not is_dtensor(labels):
+        return F.pad(labels, (n, 0), value=-1)
+    from torch.distributed.tensor import DTensor
+    labels = gather_dim(labels, 1)
+    return DTensor.from_local(F.pad(labels.to_local(), (n, 0), value=-1),
+                              labels.device_mesh, labels.placements,
+                              run_check=False)
+
+
 def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             opts: ModelOptions = DEFAULT_OPTIONS) -> torch.Tensor:
     """Scalar training loss: chunked cross-entropy of the next-token
@@ -567,12 +962,11 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     plus 0.01 × the MoE load-balance loss (0 without MoE)."""
     x, positions = embed_inputs(cfg, params, batch, opts)
     x, aux = backbone(cfg, params, x, positions, opts)
-    x = gather_dim(L.rmsnorm(x, gather_fsdp(params["final_norm"])), 1)
-    # (gathered: the CE chunks the sequence)
+    x = L.rmsnorm(x, gather_fsdp(params["final_norm"]))
     labels = batch["labels"]
     if labels.shape[1] != x.shape[1]:       # stub modality prefix: no loss
-        labels = F.pad(labels, (x.shape[1] - labels.shape[1], 0), value=-1)
-    ce = _chunked_ce(x, _head(cfg, params), labels)
+        labels = _pad_prefix(labels, x.shape[1] - labels.shape[1])
+    ce = cross_entropy(x, _head(cfg, params), labels)
     return ce + 0.01 * aux
 
 
@@ -658,14 +1052,130 @@ def _attn_decode_block(cfg, p, x, pos, kcache):
     return x + o
 
 
+def _ssm_decode_on_shards(h, sp, scfg, cache: S.SSMCache, tp_axis="model"):
+    """:func:`~repro_torch.models.ssm.ssm_block_decode` over a DTensor
+    ``h`` (B, 1, d) and a DTensor cache, computed where ``cache_specs``
+    placed the cache, through ``local_map``, so the new conv window and
+    state are written in place and move nothing. Each rank takes the
+    rows of the conv window's batch placement (``h`` gathered where the
+    window's batch is whole: the hybrid's 6-D leaves) and its columns of
+    ``in_proj`` as placed; one all-to-all over ``tp_axis`` brings it the
+    z and dt columns of the state's heads and the inputs of its conv
+    channels (``sharding.regroup_columns``); it steps its conv channels,
+    then a second all-to-all brings the conv outputs of its heads' x and
+    of B and C; it steps the rows and heads of its state, and the gated
+    norm's sum of squares is all-reduced where the heads are split. The
+    result (its rows and heads of y) is multiplied by ``out_proj`` as
+    placed, a pending sum over ``tp_axis``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    import torch.distributed._functional_collectives as funcol
+    mesh = h.device_mesh
+    names = mesh.mesh_dim_names or ()
+    tp = names.index(tp_axis) if tp_axis in names else None
+    d = h.shape[-1]
+    di, nh = S.ssm_dims(d, scfg)
+    n, hp = scfg.d_state, scfg.head_dim
+    conv, state = cache.conv, cache.state
+    if tp is not None and conv.placements[tp].is_shard(0):
+        raise NotImplementedError("a conv window with its batch split over "
+                                  f"{tp_axis!r}")
+    rows = [Replicate() if i == tp or not q.is_shard(0) else Shard(0)
+            for i, q in enumerate(conv.placements)]
+    at = (lambda t, i: t.placements[i] if i is not None else Replicate())
+    rows_split = at(state, tp).is_shard(0)        # the hybrid's state
+    heads_split = at(state, tp).is_shard(1)
+
+    def on_tp(dim):
+        return [Shard(dim) if i == tp else Replicate()
+                for i in range(mesh.ndim)]
+
+    def place(name, split, dim=0):
+        return sharding.place(sp[name], mesh, on_tp(dim) if split
+                              else [Replicate()] * mesh.ndim)
+
+    conv_split = at(conv, tp).is_shard(2)
+    w_in = sharding.place(sp["in_proj"], mesh, [
+        Shard(1) if i == tp and p.is_shard(1) else Replicate()
+        for i, p in enumerate(sp["in_proj"].placements)])
+    weights = (w_in, place("conv_w", conv_split, 1),
+               place("conv_b", conv_split), place("dt_bias", heads_split),
+               place("A_log", heads_split), place("D", heads_split),
+               place("norm_scale", heads_split))
+    ein = 2 * di + 2 * n + nh
+
+    def rng(length, t, dim, rank):
+        return sharding.chunk_range(length, mesh, tp, at(t, tp), rank) \
+            if at(t, tp).is_shard(dim) else range(length)
+
+    def heads(rank):
+        return rng(nh, state, 1, rank)
+
+    def need_proj(rank):       # z and dt of the heads, then the conv inputs
+        hs, cs = heads(rank), rng(di + 2 * n, conv, 2, rank)
+        return [range(hs.start * hp, hs.stop * hp),
+                range(2 * di + 2 * n + hs.start, 2 * di + 2 * n + hs.stop),
+                range(di + cs.start, di + cs.stop)]
+
+    def need_conv(rank):       # the heads' x, then B and C
+        hs = heads(rank)
+        return [range(hs.start * hp, hs.stop * hp), range(di, di + 2 * n)]
+
+    def body(x, in_proj, conv_w, conv_b, dt_bias, A_log, D, norm_scale,
+             conv_loc, state_loc):
+        hs = heads(None)
+        proj = x[:, 0] @ in_proj
+        got = sharding.regroup_columns(
+            proj, lambda r: rng(ein, w_in, 1, r), need_proj, mesh, tp)
+        k = len(hs) * hp
+        z, dt, xbc = got[:, :k], got[:, k:k + len(hs)], got[:, k + len(hs):]
+        xbc, window = S.conv_step(conv_loc, xbc, conv_w, conv_b, x.dtype)
+        conv_loc.copy_(window)
+        got = sharding.regroup_columns(
+            xbc, lambda r: rng(di + 2 * n, conv, 2, r), need_conv, mesh, tp)
+        if rows_split:          # this rank's rows of the state
+            mine = sharding.chunk_range(x.shape[0], mesh, tp, Shard(0))
+            got, z, dt = (t[mine.start:mine.stop] for t in (got, z, dt))
+        b = got.shape[0]
+        y, new = S.state_step(state_loc, got[:, :k].reshape(b, len(hs), hp),
+                              got[:, k:k + n], got[:, k + n:], dt, dt_bias,
+                              A_log, D)
+        state_loc.copy_(new)
+        psum = None
+        if heads_split:
+            def psum(t):
+                return funcol.all_reduce(t, "sum", (mesh, tp))
+        return L.rmsnorm(y.reshape(b, k) * F.silu(z), norm_scale, psum=psum,
+                         width=di)
+
+    out = [Shard(0) if i == tp and rows_split else
+           Shard(1) if i == tp and heads_split else q
+           for i, q in enumerate(rows)]
+    fn = local_map(body, out_placements=out,
+                   in_placements=(rows, *(w.placements for w in weights),
+                                  conv.placements, state.placements),
+                   device_mesh=mesh)
+    y = fn(sharding.place(h, mesh, rows), *weights, conv, state)
+    # y's rows as h's, its columns as out_proj's rows
+    w_out = sp["out_proj"]
+    y = y.redistribute(mesh, [
+        Shard(1) if i == tp and w_out.placements[i].is_shard(0)
+        else Shard(0) if q.is_shard(0) else Replicate()
+        for i, q in enumerate(h.placements)])
+    return (y @ w_out)[:, None, :]
+
+
 def _ssm_decode_layer(cfg, p, x, cache: S.SSMCache, opts):
     """One SSM layer's decode step; ``cache`` holds views into the
     stacked cache and is updated in place."""
     h = L.rmsnorm(x, p["ln"])
     sp = {k: v for k, v in p.items() if k not in ("ln", "ffn")}
-    y, new = S.ssm_block_decode(h, sp, cfg.ssm, cache)
-    cache.conv.copy_(new.conv)
-    cache.state.copy_(new.state)
+    if is_dtensor(h):
+        y = _ssm_decode_on_shards(h, sp, cfg.ssm, cache)
+    else:
+        y, new = S.ssm_block_decode(h, sp, cfg.ssm, cache)
+        cache.conv.copy_(new.conv)
+        cache.state.copy_(new.state)
     x = settle(x + y)
     if "ffn" in p:
         x, _ = _ffn_block(cfg, p["ffn"], x, opts)

@@ -29,7 +29,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.parallel.sharding import gather_dim, is_dtensor
 
 
 def ssm_dims(d_model: int, scfg: SSMConfig):
@@ -181,20 +180,28 @@ def head_shard(params, d_model: int, scfg: SSMConfig, rank: int,
 
 
 def ssm_block(x_in: torch.Tensor, params, scfg: SSMConfig,
-              psum=None) -> torch.Tensor:
+              psum=None, bc=None) -> torch.Tensor:
     """Full Mamba2 block forward. x_in: (B,L,d) → (B,L,d).
 
     The head count is ``params``'s: given :func:`head_shard`'s weights
     it runs those heads, and the result is this rank's share of the
     output (its rows of ``out_proj``), to be summed over the ranks;
-    ``psum(t)`` then sums ``t`` over them for the gated norm."""
+    ``psum(t)`` then sums ``t`` over them for the gated norm, and
+    ``bc(x_in, w)``, where given, computes the B and C columns of the
+    input projection from their columns ``w`` of ``in_proj`` (every
+    rank's heads read all of them)."""
     from repro_torch.models.layers import rmsnorm
     b, l, d = x_in.shape
     n_heads = params["A_log"].shape[0]
     d_inner = n_heads * scfg.head_dim
     n = scfg.d_state
 
-    proj = x_in @ params["in_proj"]
+    if bc is None:
+        proj = x_in @ params["in_proj"]
+    else:
+        w, j = params["in_proj"], 2 * d_inner
+        proj = torch.cat([x_in @ w[:, :j], bc(x_in, w[:, j:j + 2 * n]),
+                          x_in @ w[:, j + 2 * n:]], -1)
     z = proj[..., :d_inner]
     xbc = proj[..., d_inner:d_inner + d_inner + 2 * n]
     dt = proj[..., -n_heads:]
@@ -213,6 +220,32 @@ def ssm_block(x_in: torch.Tensor, params, scfg: SSMConfig,
     return y @ params["out_proj"]
 
 
+def conv_step(conv: torch.Tensor, xbc: torch.Tensor, conv_w: torch.Tensor,
+              conv_b: torch.Tensor, dtype):
+    """One step of the depthwise causal conv over its cached window: conv
+    (B, K-1, C), the new inputs xbc (B, C) → (silu of the conv in
+    ``dtype``, the new window (B, K-1, C))."""
+    win = torch.cat([conv, xbc[:, None, :]], dim=1)              # (B,K,C)
+    out = torch.einsum("bkc,kc->bc", win.float(), conv_w.float())
+    return F.silu(out + conv_b.float()).to(dtype), win[:, 1:]
+
+
+def state_step(state: torch.Tensor, xs: torch.Tensor, B_mat: torch.Tensor,
+               C_mat: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
+               A_log: torch.Tensor, D: torch.Tensor):
+    """One recurrent step of the heads of ``state`` (B, H, P, N), fp32:
+    xs (B, H, P), B_mat/C_mat (B, N), dt (B, H) before its softplus →
+    (y (B, H, P) in xs's dtype, the new state)."""
+    dt = F.softplus(dt.float() + dt_bias.float())                # (B,H)
+    A = -torch.exp(A_log.float())
+    decay = torch.exp(dt * A)                                    # (B,H)
+    upd = (dt[..., None] * xs.float())[..., None] \
+        * B_mat.float()[:, None, None, :]                        # (B,H,P,N)
+    h_new = state * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", h_new, C_mat.float())
+    return y.to(xs.dtype) + xs * D.to(xs.dtype)[None, :, None], h_new
+
+
 def ssm_block_decode(x_in: torch.Tensor, params, scfg: SSMConfig,
                      cache: SSMCache):
     """Single-token recurrent step. x_in: (B,1,d) → (B,1,d), new
@@ -221,43 +254,19 @@ def ssm_block_decode(x_in: torch.Tensor, params, scfg: SSMConfig,
     b, _, d = x_in.shape
     d_inner, n_heads = ssm_dims(d, scfg)
     n = scfg.d_state
-    p = scfg.head_dim
 
     proj = (x_in @ params["in_proj"])[:, 0]                      # (B,E)
     z = proj[..., :d_inner]
     xbc = proj[..., d_inner:d_inner + d_inner + 2 * n]
     dt = proj[..., -n_heads:]
 
-    # rolling conv state
-    win = torch.cat([cache.conv, xbc[:, None, :]], dim=1)        # (B,K,C)
-    conv_out = torch.einsum("bkc,kc->bc", win.float(),
-                            params["conv_w"].float())
-    xbc = F.silu(conv_out + params["conv_b"].float()).to(x_in.dtype)
-    new_conv = win[:, 1:]
-
+    xbc, new_conv = conv_step(cache.conv, xbc, params["conv_w"],
+                              params["conv_b"], x_in.dtype)
     xs, B_mat, C_mat = _split_xbc(xbc, d_inner, n)
-    xs = xs.reshape(b, n_heads, p)
-    dt = F.softplus(dt.float() + params["dt_bias"].float())      # (B,H)
-    A = -torch.exp(params["A_log"].float())
-
-    decay = torch.exp(dt * A)                                    # (B,H)
-    upd = (dt[..., None] * xs.float())[..., None] \
-        * B_mat.float()[:, None, None, :]                        # (B,H,P,N)
-    h_new = cache.state * decay[..., None, None] + upd
-    if is_dtensor(h_new):
-        # The decode step runs on DTensors as DTensor places it, the
-        # state's heads split over `model` as cache_specs splits them
-        # (a step is one token a sequence: no split by hand is worth
-        # its collectives). DTensor cannot propagate a fold of a split
-        # dimension with another: the contraction over N is a product
-        # and a sum (the same values, summed in another order), and y,
-        # (B, H, P), has its heads and head columns gathered before it
-        # is flattened.
-        y = (h_new * C_mat.float()[:, None, None, :]).sum(-1)
-    else:
-        y = torch.einsum("bhpn,bn->bhp", h_new, C_mat.float())
-    y = y.to(xs.dtype) + xs * params["D"].to(xs.dtype)[None, :, None]
-    y = gather_dim(gather_dim(y, 1), 2).reshape(b, d_inner)
-    y = rmsnorm((y * F.silu(z))[:, None, :], params["norm_scale"])
+    y, h_new = state_step(cache.state, xs.reshape(b, n_heads, scfg.head_dim),
+                          B_mat, C_mat, dt, params["dt_bias"],
+                          params["A_log"], params["D"])
+    y = rmsnorm((y.reshape(b, d_inner) * F.silu(z))[:, None, :],
+                params["norm_scale"])
     out = y @ params["out_proj"]
     return out, SSMCache(conv=new_conv, state=h_new)

@@ -321,7 +321,18 @@ def place(x: torch.Tensor, mesh, placements):
     if not is_dtensor(x):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
-    return x.redistribute(mesh, placements)
+    return _redistribute(x, placements)
+
+
+def _redistribute(x, placements):
+    """``x`` redistributed to ``placements``, and ``x`` itself where it
+    has them already: a redistribution that moves nothing still puts a
+    node in the autograd graph, whose backward reduces a gradient that
+    holds a pending sum (an all-reduce) where the next real
+    redistribution would have reduce-scattered it."""
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
 
 
 def distribute(x: torch.Tensor, spec, mesh):
@@ -343,9 +354,8 @@ def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
         return x
     from torch.distributed.tensor import Replicate
     dim %= x.ndim
-    placements = [Replicate() if p.is_shard(dim) else p
-                  for p in x.placements]
-    return x.redistribute(x.device_mesh, placements)
+    return _redistribute(x, [Replicate() if p.is_shard(dim) else p
+                             for p in x.placements])
 
 
 def gather_fsdp(x: torch.Tensor, tp_axis: str = "model") -> torch.Tensor:
@@ -399,3 +409,83 @@ def current_mesh():
         raise RuntimeError("no mesh: enter repro_torch.parallel.sharding."
                            "use_mesh(mesh) first")
     return _MESHES[-1]
+
+
+# --------------------------------------------------------------------------
+# moving columns between ranks by hand (inside ``local_map``)
+# --------------------------------------------------------------------------
+
+def chunk_range(length: int, mesh, dim: Optional[int], placement,
+                rank: Optional[int] = None) -> range:
+    """The indices of a tensor dimension of ``length`` that rank ``rank``
+    of mesh dimension ``dim`` holds (this rank's by default) under
+    ``placement`` there: DTensor's chunks (``ceil(length / n)`` a rank,
+    the last ones shorter or empty) for a ``Shard``, all of them
+    otherwise."""
+    if dim is None or not placement.is_shard():
+        return range(length)
+    n = mesh.size(dim)
+    rank = mesh.get_local_rank(dim) if rank is None else rank
+    per = -(-length // n)
+    return range(min(rank * per, length), min((rank + 1) * per, length))
+
+
+def regroup_columns(t: torch.Tensor, held, need, mesh, dim: Optional[int]):
+    """The columns ``need(rank)`` of a 2-D local tensor ``t`` whose
+    columns are the global indices ``held(rank)`` (a range) on each rank
+    of mesh dimension ``dim``. ``need(rank)`` is a list of ranges of
+    global indices, taken in that order. Each rank sends every other
+    rank the columns it needs and does not hold, in one
+    ``all_to_all_single`` over ``dim`` with uneven splits (none when
+    every rank holds what it needs); a column held by several ranks
+    comes from the lowest of them. ``dim`` None: this rank holds every
+    column it needs."""
+    n = 1 if dim is None else mesh.size(dim)
+    me = 0 if dim is None else mesh.get_local_rank(dim)
+    holds = [held(r) for r in range(n)]
+
+    def pieces(rank):
+        """(start, stop, source) covering need(rank) in order."""
+        out, own = [], holds[rank]
+        for seg in need(rank):
+            pos = seg.start
+            while pos < seg.stop:
+                if pos in own:
+                    out.append((pos, min(seg.stop, own.stop), rank))
+                else:
+                    src = next(s for s in range(n) if pos in holds[s])
+                    stop = min(seg.stop, holds[src].stop)
+                    if own.start > pos:
+                        stop = min(stop, own.start)
+                    out.append((pos, stop, src))
+                pos = out[-1][1]
+        return out
+
+    def cols(ps, src, base):
+        return [i - base for a, b, s in ps if s == src for i in range(a, b)]
+
+    mine = pieces(me)
+    send = [cols(pieces(j), me, holds[me].start) if j != me else []
+            for j in range(n)]
+    recv = [sum(b - a for a, b, s in mine if s == j) if j != me else 0
+            for j in range(n)]
+    parts = [t[:, cols(mine, me, holds[me].start)]]
+    if any(send) or any(recv):
+        import torch.distributed._functional_collectives as funcol
+        got = funcol.all_to_all_single(
+            t[:, [i for idx in send for i in idx]].T.contiguous(), recv,
+            [len(x) for x in send], (mesh, dim))
+        if isinstance(got, funcol.AsyncCollectiveTensor):
+            got = got.wait()
+        parts.append(got.T)
+    # the columns come local first, then from each source in rank order,
+    # each in need order: put them back in need order
+    start, off = {me: 0}, sum(b - a for a, b, s in mine if s == me)
+    for j in range(n):
+        if j != me:
+            start[j], off = off, off + recv[j]
+    where = []
+    for a, b, s in mine:
+        where.extend(range(start[s], start[s] + b - a))
+        start[s] += b - a
+    return torch.cat(parts, dim=1)[:, where]

@@ -21,7 +21,8 @@ imports it.
 
 The second form lowers full-width cells on the 16 x 16 production mesh
 at a depth cut (:func:`production_cells`), for
-``tests/test_torch_dryrun_sweep.py``.
+``tests/test_torch_dryrun_held_{train,prefill,decode}.py`` and
+``chip_smoke.py``'s ``DRYRUN_REFERENCE_FLOPS`` / ``DRYRUN_REFERENCE_COLL``.
 """
 import json
 import sys
@@ -118,17 +119,86 @@ def reference_cells(out_json):
         json.dump(out, f)
 
 
+def dot_flops(hlo_text):
+    """The dot FLOPs of ``hlo_stats(hlo_text)["flops"]`` by the dot's
+    shapes: ``{"res|lhs|rhs": flops}`` (each a comma-joined dims string),
+    each dot's FLOPs times the trip counts of the loops around it, read
+    with the same rules as ``repro.core.roofline.hlo_stats`` (the loop
+    bodies times their trip counts, fused and called computations once,
+    collectives' reducers never)."""
+    from repro.core import roofline as RR
+    comps, entry = RR._split_computations(hlo_text)
+    dims = {}
+    for lines in comps.values():
+        for line in lines:
+            m = RR._RESULT_RE.match(line)
+            if m:
+                dims[m.group(1)] = m.group(3)
+    out = {}
+
+    def trip_count(cond):
+        consts = [int(c) for line in comps.get(cond, ())
+                  for c in RR._CONST_RE.findall(line)]
+        return max(consts) if consts else 1
+
+    def walk(name, mult, stack=()):
+        if name in stack or name not in comps:
+            return
+        for line in comps[name]:
+            if RR._line_traffic(line):
+                continue
+            rm = RR._RESULT_RE.match(line)
+            om = RR._OPCODE_RE.search(line)
+            opcode = om.group(1) if om else ""
+            if opcode == "dot" and rm and rm.group(2) in RR._DTYPE_BYTES:
+                ops = RR._OPERAND_RE.findall(
+                    line[line.find("dot(") + 4:].split(")")[0])
+                res = [int(d) for d in rm.group(3).split(",") if d]
+                k = 1
+                cd = RR._LHS_CDIM_RE.search(line)
+                lhs = [int(d) for d in dims.get(ops[0], "").split(",") if d]
+                if cd and lhs:
+                    for di in cd.group(1).split(","):
+                        if di:
+                            k *= lhs[int(di)]
+                key = "|".join([rm.group(3)] + [dims.get(o, "?")
+                                                for o in ops[:2]])
+                n = 1
+                for d in res:
+                    n *= d
+                out[key] = out.get(key, 0.0) + mult * 2.0 * n * k
+            wm = RR._WHILE_RE.search(line)
+            if wm:
+                cond = wm.group(1) or wm.group(4)
+                walk(wm.group(2) or wm.group(3),
+                     mult * (trip_count(cond) if cond else 1),
+                     stack + (name,))
+            elif opcode in ("fusion", "call", "custom-call", "conditional"):
+                for callee in RR._CALL_RE.findall(line):
+                    walk(callee, mult, stack + (name,))
+    if entry:
+        walk(entry, 1)
+    return out
+
+
 def production_cells(out_json, cells):
     """``hlo_stats`` of each (arch, shape, layers) of ``cells`` as the
     reference's own dry run lowers it on the 16 x 16 production mesh, its
     config cut to ``layers`` (widths kept), by cell name
-    ``arch/shape/layers``. Its ``repro.launch.dryrun`` is imported first
+    ``arch/shape/layers``, with its dot FLOPs by shape under ``dots``
+    (:func:`dot_flops`). Its ``repro.launch.dryrun`` is imported first
     (it sets ``XLA_FLAGS`` to 512 devices); the mesh's axes are ``Auto``,
     as above."""
     import dataclasses
+    import os
     import warnings
     warnings.simplefilter("ignore", DeprecationWarning)
     from repro.launch import dryrun as RD                # noqa: E402
+    # less effort in the CPU backend's code generation: the HLO after
+    # the SPMD partitioner, which hlo_stats reads, is the same (equal
+    # counts on gpt2, h2o and jamba train_4k), in about 60 % of the time
+    os.environ["XLA_FLAGS"] += (" --xla_backend_optimization_level=0"
+                                " --xla_llvm_disable_expensive_passes=true")
     import jax
     from repro.core import roofline as RR
 
@@ -137,12 +207,18 @@ def production_cells(out_json, cells):
         axis_types=(jax.sharding.AxisType.Auto,) * 2)
     config_of = RD.get_config
     analyze = RR.analyze
-    out = {}
+    out, seen = {}, {}
     for arch, shape, layers in cells:
+        cfg = dataclasses.replace(config_of(arch), n_layers=layers)
+        same = (repr(dataclasses.replace(cfg, name="", source="")), shape)
+        if same in seen:       # bert_large and bert_exlarge at one layer
+            out[f"{arch}/{shape}/{layers}"] = out[seen[same]]
+            continue
+        seen[same] = f"{arch}/{shape}/{layers}"
         stats = {}
 
         def keep_stats(arch, shape, mesh_name, n_chips, cost, hlo, *a, **k):
-            stats.update(RR.hlo_stats(hlo))
+            stats.update(RR.hlo_stats(hlo), dots=dot_flops(hlo))
             return analyze(arch, shape, mesh_name, n_chips, cost, hlo, *a,
                            **k)
         RD.get_config = lambda a, _n=layers: dataclasses.replace(

@@ -16,28 +16,18 @@ multi-pod case), full width at a depth cut, through
   256 ranks").
 
 Each must lower, with its three roofline terms and its peak bytes per
-device above 0. The MoE's and the enc-dec's decode cells on 16 x 16 are
-also held to the reference's own dry run of the same cell (lowered in a
-child python, ``tests/test_torch_dryrun_ref.py --production``): their
-per-device FLOPs within 10 %, their collective bytes no more than 10 %
-over the reference's. The whole sweep over every architecture (40 cells a
-mesh) is ``python -m repro_torch.launch.dryrun --layers 2 --device cpu``
-per architecture (jamba ``--layers 8``), which takes minutes a mesh.
+device above 0. Every cell of the sweep on 16 x 16 (these among them)
+is held to the reference's own dry run of the same cell by
+``tests/test_torch_dryrun_held_{train,prefill,decode}.py``. The whole
+sweep over every architecture (40 cells a mesh) is ``python -m
+repro_torch.launch.dryrun --layers 2 --device cpu`` per architecture
+(jamba ``--layers 8``), which takes minutes a mesh.
 """
-import json
-import pathlib
-import subprocess
-import sys
-
 import pytest
 
 torch = pytest.importorskip("torch")
 
-import test_torch_dryrun_ref as ref
-import test_torch_ranks as ranks
 from repro_torch.launch import dryrun as D
-
-CLOSE = 0.10
 
 #: (arch, shape, --baseline, smoke config, layers): one layer (jamba one
 #: period of 8) at full width, unless smoke
@@ -73,39 +63,3 @@ def test_the_cell_lowers(arch, shape, multi_pod, baseline, smoke, layers):
     terms = (rep.t_compute, rep.t_memory, rep.t_collective)
     assert all(t > 0 for t in terms), terms
     assert mem["peak_bytes_per_device"] > 0
-
-
-#: (arch, shape, layers) held to the reference's dry run on 16 x 16
-HELD_CELLS = [("qwen3_moe_30b_a3b", "decode_32k", 1),
-              ("dbrx_132b", "decode_32k", 1),
-              ("whisper_tiny", "decode_32k", 1)]
-
-
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    """The reference's ``hlo_stats`` of each of HELD_CELLS, by
-    ``arch/shape/layers``."""
-    out = tmp_path_factory.mktemp("dryrun_production") / "ref.json"
-    proc = subprocess.run(
-        [sys.executable, str(pathlib.Path(ref.__file__)), "--production",
-         str(out)] + [":".join(map(str, c)) for c in HELD_CELLS],
-        capture_output=True, text=True, timeout=600,
-        env=ranks.child_env(JAX_PLATFORMS="cpu"))
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return json.loads(out.read_text())
-
-
-@pytest.mark.parametrize("arch,shape,layers", HELD_CELLS,
-                         ids=["-".join(map(str, c)) for c in HELD_CELLS])
-def test_decode_on_16x16_counts_the_references_work(reference, arch, shape,
-                                                     layers):
-    """The experts' products placed as the reference's XLA places them
-    (each rank its experts, every capacity slot), whatever torch's
-    DTensor would choose, and the combine a pending sum of the tokens'
-    rows, not a gather of the experts'."""
-    want = reference[f"{arch}/{shape}/{layers}"]
-    rep, _ = D.lower_cell(arch, shape, False, device="cpu", layers=layers)
-    assert abs(rep.hlo_flops - want["flops"]) <= CLOSE * want["flops"], (
-        rep.hlo_flops, want["flops"])
-    assert 0 < rep.coll_bytes <= (1 + CLOSE) * want["total"], (
-        rep.coll_bytes, want["total"])

@@ -67,7 +67,7 @@ def worlds(tmp_path_factory):
     base = tmp_path_factory.mktemp("ranks")
     jobs = {2: ["ring", "ring_grad", "ep", "attention", "attention_rkv"],
             4: ["ring", "ring_grad", "ep", "fsdp_step", "decode",
-                "tp_step", "serve_decode"]}
+                "tp_step", "uneven", "serve_decode"]}
     with ThreadPoolExecutor(2) as pool:
         futures = {n: pool.submit(ranks.run, jobs[n], n, base / f"w{n}")
                    for n in jobs}
@@ -580,14 +580,93 @@ def test_train_step_with_one_head_a_rank_equals_the_plain_step(worlds,
                 <= 2 * np.spacing(want), k
 
 
+@pytest.mark.parametrize("arch", sorted(ranks.UNEVEN))
+def test_uneven_heads_and_vocabulary_train_step_equals_the_plain_step(
+        worlds, arch):
+    """A smoke config with 3 heads and a vocabulary of 257 on its mesh
+    under the dry run's options (``ranks.UNEVEN``): each rank projects
+    its rows, the heads padded to a multiple of ``model`` (qwen2 on
+    (2, 2): the second rank's last slot empty; whisper on (1, 4): the
+    last rank's only slot), the cross-entropy on each rank's rows by the
+    whole head. The loss and the gradient norm are the plain step's
+    (``train_check``'s bars: rtol 1e-5, 1e-4)."""
+    _, outs = worlds[4]
+    for o in outs:
+        key = f"uneven/{arch}/train"
+        np.testing.assert_allclose(o[f"{key}/loss"], o[f"{key}/want_loss"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(o[f"{key}/grad_norm"],
+                                   o[f"{key}/want_grad_norm"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", sorted(ranks.UNEVEN))
+def test_uneven_heads_and_vocabulary_prefill_equals_the_plain_forward(
+        worlds, arch):
+    """The same configs' prefill logits on their meshes equal the plain
+    forward's (fp32, 1e-5)."""
+    _, outs = worlds[4]
+    for o in outs:
+        key = f"uneven/{arch}/prefill"
+        np.testing.assert_allclose(o[f"{key}/logits"],
+                                   o[f"{key}/want_logits"], atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _reference_inputs(o, key):
+    """The reference's parameter tree and batch from the ``uneven``
+    job's rank-0 outputs under ``key``."""
+    tree, batch = {}, {}
+    for name, v in o.items():
+        if name.startswith(f"{key}/param/"):
+            *path, leaf = name[len(f"{key}/param/"):].split("/")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = jnp.asarray(v)
+        elif name.startswith(f"{key}/batch/"):
+            batch[name[len(f"{key}/batch/"):]] = jnp.asarray(v)
+    return tree, batch
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+@pytest.mark.parametrize("arch", sorted(ranks.UNEVEN))
+def test_uneven_heads_and_vocabulary_on_a_mesh_match_the_reference(
+        worlds, arch, kind):
+    """The same configs on their meshes against the reference's own
+    loss and prefill logits (plain, fp32, naive attention) on the same
+    parameters and batch: the loss at rtol 1e-5, the logits at 1e-5."""
+    from repro.configs.base import get_config as ref_get_config
+    from repro.configs.base import smoke_config as ref_smoke_config
+    from repro.models import api as ref_api
+    widths, _ = ranks.UNEVEN[arch]
+    ref_cfg = dataclasses.replace(ref_smoke_config(ref_get_config(arch)),
+                                  **widths)
+    model = ref_api.build_model(ref_cfg, RL.ModelOptions(
+        dtype=jnp.float32, remat=False, attn_impl="naive"))
+    key = f"uneven/{arch}/{kind}"
+    _, outs = worlds[4]
+    tree, batch = _reference_inputs(outs[0], key)
+    if kind == "train":
+        want = float(model.loss(tree, batch))
+        for o in outs:
+            np.testing.assert_allclose(o[f"{key}/loss"], want, rtol=1e-5)
+        return
+    want = np.asarray(model.forward(tree, batch))
+    for o in outs:
+        np.testing.assert_allclose(o[f"{key}/logits"], want, atol=1e-5,
+                                   rtol=1e-5)
+
+
 @pytest.mark.parametrize("arch", sorted(ranks.SERVE_DECODE))
 def test_serve_decode_on_a_placed_cache_equals_the_plain_decode(worlds,
                                                                 arch):
     """Greedy decode on a (2, 2) mesh as the dry run places it: the MoE's
-    ``gather`` combine on DTensors, and the enc-dec's cross-attention
-    with heads that do not divide ``model`` (its q gathered, its K/V
-    split over the sequence and attended in parts). The logits equal
-    the plain decode's at every step (fp32, 1e-5)."""
+    ``gather`` combine on DTensors; the enc-dec's cross-attention with
+    heads that do not divide ``model`` (its q gathered, its K/V split
+    over the sequence and attended in parts); the SSM step of mamba2 and
+    of the hybrid computed where the cache is placed, its new state and
+    conv window written in place. The logits equal the plain decode's at
+    every step (fp32, 1e-5)."""
     _, outs = worlds[4]
     for o in outs:
         np.testing.assert_allclose(o[f"serve_decode/{arch}/got"],
@@ -624,6 +703,55 @@ def test_attention_refuses_a_sharded_head_dim():
 # --------------------------------------------------------------------------
 # the train step with grad_specs, and the launcher
 # --------------------------------------------------------------------------
+
+def test_a_remat_layer_on_a_mesh_replays_its_collectives(one_rank):
+    """``lm.run_layer`` under remat with a DTensor input: the recompute
+    in the backward runs none of the layer's collectives (it replays
+    the forward's results, each once); a second backward through the
+    same graph (``retain_graph``) runs them again; every gradient
+    equals the layer's without remat."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import lm
+    mesh = one_rank["dm"]
+
+    def layer(cfg, lp, x):
+        h = x.to_local() @ lp["w"]
+        gather = getattr(funcol, "all_gather_single_autograd", None) \
+            or funcol.all_gather_tensor_autograd       # (torch 2.11's name)
+        g = gather(h, 0, (mesh, 1))
+        g = g.wait() if isinstance(g, funcol.AsyncCollectiveTensor) else g
+        return (g.tanh() @ lp["w"]).sum()
+
+    class Gathers(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Gathers.n += "all_gather" in func.name()
+            return func(*args, **(kwargs or {}))
+
+    gen = torch.Generator().manual_seed(0)
+    x0 = torch.randn(4, 8, generator=gen)
+    w0 = torch.randn(8, 8, generator=gen)
+    grads = {}
+    for remat in (False, True):
+        x = DTensor.from_local(x0.clone().requires_grad_(), mesh,
+                               [Replicate(), Replicate()])
+        w = w0.clone().requires_grad_()
+        out = lm.run_layer(L.ModelOptions(remat=remat), layer, None,
+                           {"w": w}, x)
+        got = []
+        for again in (0, 1):
+            Gathers.n = 0
+            with Gathers():
+                got.append(torch.autograd.grad(out, w, retain_graph=True)[0])
+            assert Gathers.n == (remat and again), (remat, again, Gathers.n)
+        grads[remat] = got
+    for g in grads[True] + grads[False][1:]:
+        torch.testing.assert_close(g, grads[False][0], rtol=0, atol=0)
+
 
 @pytest.mark.parametrize("remat", [False, True])
 def test_sharded_train_step_equals_the_plain_step(one_rank, remat):

@@ -607,13 +607,94 @@ def port_tp_step(rank, world):
     return out
 
 
+#: the ``uneven`` job's configs and the (data, model) mesh of each:
+#: smoke configs whose vocabulary (257) and heads (3) do not divide
+#: ``model``, the dense model (GQA over one KV head, q/k/v biases, tied
+#: head) on (2, 2) — two head slots a rank, the second rank's last one
+#: padding — and the enc-dec one (its cross-attention too) on (1, 4),
+#: one slot a rank, the last rank's padding only
+UNEVEN = {"qwen2_1_5b": (dict(d_model=48, n_heads=3, n_kv_heads=1,
+                              vocab=257), (2, 2)),
+          "whisper_tiny": (dict(d_model=48, n_heads=3, n_kv_heads=3,
+                                vocab=257), (1, 4))}
+
+
+def port_uneven(rank, world):
+    """The train step and the prefill of each :data:`UNEVEN` config on
+    its mesh under the dry run's ``model_options`` (heads over
+    ``model``, padded to a multiple of its size; the vocabulary whole,
+    the cross-entropy on each rank's rows), in fp32, beside the plain
+    step and forward (port), with the parameters and the batch, for the
+    reference's loss and logits on the same inputs."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig, get_config, smoke_config
+    from repro_torch.launch.dryrun import model_options
+    from repro_torch.models.api import build_model, make_batch
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_prefill_step, make_train_step
+    from repro_torch.train.tree import leaf_paths
+    out = {}
+    for arch, (widths, dims) in UNEVEN.items():
+        mesh = init_device_mesh("cpu", dims, mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(smoke_config(get_config(arch)), **widths)
+        for kind in ("train", "prefill"):
+            shape = ShapeConfig(f"uneven_{kind}", 64, 4, kind)
+            opts = dataclasses.replace(model_options(cfg, shape, mesh),
+                                       dtype=torch.float32)
+            plain = dataclasses.replace(opts, act_spec=None, qkv_spec=None,
+                                        kv_spec=None)
+            params = build_model(cfg, opts).init(
+                torch.Generator().manual_seed(0), "cpu")
+            batch = make_batch(cfg, shape, torch.Generator().manual_seed(1),
+                               "cpu", opts)
+            pspecs = sh.param_specs(params, mesh, fsdp_axes="data")
+            dbatch = sh.distribute_tree(batch, sh.batch_specs(
+                batch, mesh, ("data",)), mesh)
+            key = f"uneven/{arch}/{kind}"
+            if rank == 0:
+                out.update({f"{key}/param/{p}": v.numpy()
+                            for p, v in leaf_paths(params)})
+                out.update({f"{key}/batch/{k}": v.numpy()
+                            for k, v in batch.items()})
+            if kind == "prefill":
+                want = make_prefill_step(cfg, plain)(params, batch)
+                with sh.use_mesh(mesh):
+                    got = make_prefill_step(cfg, opts)(
+                        sh.distribute_tree(params, pspecs, mesh), dbatch)
+                out[f"{key}/logits"] = got.full_tensor().numpy()
+                out[f"{key}/want_logits"] = want.numpy()
+                continue
+            state = opt.init(params)
+            _, _, want = make_train_step(cfg, plain)(params, state, batch)
+            ospecs = sh.zero1_specs(state, opt.state_specs(pspecs), mesh)
+            step = make_train_step(cfg, opts, grad_specs=pspecs)
+            with sh.use_mesh(mesh):
+                _, _, got = step(sh.distribute_tree(params, pspecs, mesh),
+                                 sh.distribute_tree(state, ospecs, mesh),
+                                 dbatch)
+            out.update({f"{key}/{w}{k}": m[k].numpy()
+                        for w, m in (("", got), ("want_", want))
+                        for k in ("loss", "grad_norm")})
+    return out
+
+
 #: the ``serve_decode`` job's configs (smoke, with their overrides): the
 #: MoE model, whose FFN takes ``moe_impl="gather"`` in decode (its
-#: combine on DTensors), and the enc-dec audio model with 3 heads, which
+#: combine on DTensors); the enc-dec audio model with 3 heads, which
 #: do not divide ``model`` (2 ranks): the cross-attention's q is
-#: gathered and its K/V cache split over the sequence
+#: gathered and its K/V cache split over the sequence; and the SSM
+#: model and the hybrid, whose SSM step runs where ``cache_specs``
+#: places the cache (mamba2's conv channels and state heads split over
+#: ``model`` in chunks that ``in_proj``'s columns do not match, the
+#: hybrid's state split over ``model`` by its batch)
 SERVE_DECODE = {"qwen3_moe_30b_a3b": {},
-                "whisper_tiny": dict(d_model=48, n_heads=3, n_kv_heads=3)}
+                "whisper_tiny": dict(d_model=48, n_heads=3, n_kv_heads=3),
+                "mamba2_2_7b": {}, "jamba_v0_1_52b": {}}
 SERVE_BATCH, SERVE_SEQ, SERVE_FRAMES = 4, 16, 16
 
 
@@ -672,7 +753,7 @@ PORT_JOBS = {"ring": port_ring, "ring_grad": port_ring_grad, "ep": port_ep,
              "attention_rkv": port_attention_replicated_kv,
              "decode": port_decode,
              "fsdp_step": port_fsdp_step, "tp_step": port_tp_step,
-             "serve_decode": port_serve_decode}
+             "uneven": port_uneven, "serve_decode": port_serve_decode}
 
 
 def rank_main(jobs, rank, world, store, out_path):
