@@ -109,9 +109,11 @@ Around that it
 * the dry run: the ring attention's backward on one NCCL rank against
   ``flash_torch``'s, the roofline held to the train phase's measured
   step, and each of ``DRYRUN_CELLS`` traced at full width on 256 or 512
-  fake ranks in a child process, gated on its three roofline counts
+  fake ranks (in the default mapping or the paper-faithful
+  ``--baseline``) in a child process, gated on its three roofline counts
   > 0 and, where ``DRYRUN_REFERENCE_FLOPS`` and ``DRYRUN_REFERENCE_COLL``
-  have the reference's counts, on its collective bytes a device at most
+  have the reference's counts of the same cell, mesh and mapping, on its
+  collective bytes a device at most
   10 % over the reference's and its FLOPs within 10 % of them (decode)
   or at most 10 % over (where the port skips empty block pairs or the
   reference does work the port does not); those last cells' FLOPs are
@@ -2965,64 +2967,98 @@ def phase_parallel(mesh, ep_row) -> dict:
 # vocabulary of 50257, each rank's rows by the whole head), phi3's
 # prefill (40 heads padded to 48), the SSM decode step where the cache is
 # placed (mamba2; jamba, its state split by its batch) and jamba's
-# prefill (the dense FFN split over `model`).
-DRYRUN_CELLS = (("h2o_danube_1_8b", "train_4k", "single", None),
-                ("h2o_danube_1_8b", "train_4k", "multi", None),
-                ("qwen3_moe_30b_a3b", "prefill_32k", "single", 4),
-                ("mistral_large_123b", "decode_32k", "single", None),
-                ("qwen3_moe_30b_a3b", "decode_32k", "single", 2),
-                ("whisper_tiny", "decode_32k", "single", None),
-                ("mamba2_2_7b", "train_4k", "single", 16),
-                ("t5_large", "train_4k", "single", None),
-                ("qwen2_1_5b", "train_4k", "single", 1),
-                ("gpt2_345m", "train_4k", "single", 1),
-                ("phi3_medium_14b", "prefill_32k", "single", 1),
-                ("mamba2_2_7b", "decode_32k", "single", 1),
-                ("jamba_v0_1_52b", "decode_32k", "single", 8),
-                ("jamba_v0_1_52b", "prefill_32k", "single", 8))
+# prefill (the dense FFN split over `model`). The last four (at one
+# layer) hold the paper-faithful `--baseline` mapping, where no spec
+# places the residual stream or the heads: h2o's prefill (it did not
+# lower: DTensor's product of a sequence split over `model` by the
+# row-parallel w_down), t5's train step (Megatron's products, each
+# block's output and its input's gradient all-reduced), qwen3_moe's
+# train step (its tokens gathered into each rank's experts' slots by
+# hand), and qwen2's train step on the multi-pod mesh (the batch over
+# ("pod", "data")). (arch, shape, mesh, layers, baseline).
+DRYRUN_CELLS = (("h2o_danube_1_8b", "train_4k", "single", None, False),
+                ("h2o_danube_1_8b", "train_4k", "multi", None, False),
+                ("qwen3_moe_30b_a3b", "prefill_32k", "single", 4, False),
+                ("mistral_large_123b", "decode_32k", "single", None, False),
+                ("qwen3_moe_30b_a3b", "decode_32k", "single", 2, False),
+                ("whisper_tiny", "decode_32k", "single", None, False),
+                ("mamba2_2_7b", "train_4k", "single", 16, False),
+                ("t5_large", "train_4k", "single", None, False),
+                ("qwen2_1_5b", "train_4k", "single", 1, False),
+                ("gpt2_345m", "train_4k", "single", 1, False),
+                ("phi3_medium_14b", "prefill_32k", "single", 1, False),
+                ("mamba2_2_7b", "decode_32k", "single", 1, False),
+                ("jamba_v0_1_52b", "decode_32k", "single", 8, False),
+                ("jamba_v0_1_52b", "prefill_32k", "single", 8, False),
+                ("h2o_danube_1_8b", "prefill_32k", "single", 1, True),
+                ("t5_large", "train_4k", "single", 1, True),
+                ("qwen3_moe_30b_a3b", "train_4k", "single", 1, True),
+                ("qwen2_1_5b", "train_4k", "multi", 1, False))
 DRYRUN_TIMEOUT = 600
-#: per-device FLOPs and collective bytes of cells of DRYRUN_CELLS as the
-#: reference's own dry run counts them (``repro.launch.dryrun``, XLA's
-#: ``hlo_stats``, on 16 x 16 at the same depth), made by
+#: per-device FLOPs and collective bytes of cells of DRYRUN_CELLS, by
+#: (arch, shape, mesh, baseline), as the reference's own dry run counts
+#: them (``repro.launch.dryrun``, XLA's ``hlo_stats``, on the cell's mesh
+#: and mapping at the same depth), made by
 #:   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/test_torch_dryrun_ref.py \
 #:     --production ref.json qwen3_moe_30b_a3b:decode_32k:2 \
 #:     whisper_tiny:decode_32k:4 qwen2_1_5b:train_4k:1 gpt2_345m:train_4k:1 \
 #:     phi3_medium_14b:prefill_32k:1 mamba2_2_7b:decode_32k:1 \
-#:     jamba_v0_1_52b:decode_32k:8 jamba_v0_1_52b:prefill_32k:8
-#: (``flops`` and ``total``); ``tests/test_torch_dryrun_held_*.py`` hold
-#: every cell at one layer to the live reference on the CPU. Held here
-#: on the card's torch, whose DTensor chooses other strategies: the
-#: collective bytes at most DRYRUN_TOL over; the FLOPs within DRYRUN_TOL
-#: where no block pair is skipped (decode), at most DRYRUN_TOL over where
-#: the port's blockwise attention skips pairs (train, prefill) or the
-#: reference does work the port does not (gpt2's head on every chunk of
-#: each rank's rows, jamba's dense down product whole on every rank).
-DRYRUN_REFERENCE_FLOPS = {("qwen3_moe_30b_a3b", "decode_32k"): 3022782464,
-                          ("whisper_tiny", "decode_32k"): 477911040,
-                          ("qwen2_1_5b", "train_4k"): 7774427676672,
-                          ("gpt2_345m", "train_4k"): 10805265301504,
-                          ("phi3_medium_14b", "prefill_32k"): 10299331575808,
-                          ("mamba2_2_7b", "decode_32k"): 2100327424,
-                          ("jamba_v0_1_52b", "decode_32k"): 53523003392,
-                          ("jamba_v0_1_52b", "prefill_32k"): 59755041128448}
-DRYRUN_REFERENCE_COLL = {("qwen3_moe_30b_a3b", "decode_32k"): 4884640.0,
-                         ("whisper_tiny", "decode_32k"): 4981152.0,
-                         ("qwen2_1_5b", "train_4k"): 5474411007.25,
-                         ("gpt2_345m", "train_4k"): 2986530800.25,
-                         ("phi3_medium_14b", "prefill_32k"): 4865392640.0,
-                         ("mamba2_2_7b", "decode_32k"): 121020.0,
-                         ("jamba_v0_1_52b", "decode_32k"): 127182752.0,
-                         ("jamba_v0_1_52b", "prefill_32k"): 25214934592.0}
+#:     jamba_v0_1_52b:decode_32k:8 jamba_v0_1_52b:prefill_32k:8 \
+#:     h2o_danube_1_8b:prefill_32k:1:baseline t5_large:train_4k:1:baseline \
+#:     qwen3_moe_30b_a3b:train_4k:1:baseline qwen2_1_5b:train_4k:1:multi
+#: (``flops`` and ``total``; t5's baseline bytes are ``every_operand``,
+#: every operand of XLA's combined all-reduces counted, as
+#: ``tests/test_torch_dryrun_held.py::COMBINED`` holds the cell);
+#: ``tests/test_torch_dryrun_{held,baseline}_*.py`` hold every cell at
+#: one layer to the live reference on the CPU. Held here on the card's
+#: torch, whose DTensor chooses other strategies: the collective bytes
+#: at most DRYRUN_TOL over; the FLOPs within DRYRUN_TOL where no block
+#: pair is skipped (decode), at most DRYRUN_TOL over where the port's
+#: blockwise attention skips pairs (train, prefill) or the reference
+#: does work the port does not (gpt2's head on every chunk of each
+#: rank's rows, jamba's dense down product whole on every rank).
+DRYRUN_REFERENCE_FLOPS = {
+    ("qwen3_moe_30b_a3b", "decode_32k", "single", False): 3022782464,
+    ("whisper_tiny", "decode_32k", "single", False): 477911040,
+    ("qwen2_1_5b", "train_4k", "single", False): 7774427676672,
+    ("gpt2_345m", "train_4k", "single", False): 10805265301504,
+    ("phi3_medium_14b", "prefill_32k", "single", False): 10299331575808,
+    ("mamba2_2_7b", "decode_32k", "single", False): 2100327424,
+    ("jamba_v0_1_52b", "decode_32k", "single", False): 53523003392,
+    ("jamba_v0_1_52b", "prefill_32k", "single", False): 59755041128448,
+    ("h2o_danube_1_8b", "prefill_32k", "single", True): 2614561341440,
+    ("t5_large", "train_4k", "single", True): 1057098825728,
+    ("qwen3_moe_30b_a3b", "train_4k", "single", True): 33451352784896,
+    ("qwen2_1_5b", "train_4k", "multi", False): 3887213838336}
+DRYRUN_REFERENCE_COLL = {
+    ("qwen3_moe_30b_a3b", "decode_32k", "single", False): 4884640.0,
+    ("whisper_tiny", "decode_32k", "single", False): 4981152.0,
+    ("qwen2_1_5b", "train_4k", "single", False): 5474411007.25,
+    ("gpt2_345m", "train_4k", "single", False): 2986530800.25,
+    ("phi3_medium_14b", "prefill_32k", "single", False): 4865392640.0,
+    ("mamba2_2_7b", "decode_32k", "single", False): 121020.0,
+    ("jamba_v0_1_52b", "decode_32k", "single", False): 127182752.0,
+    ("jamba_v0_1_52b", "prefill_32k", "single", False): 25214934592.0,
+    ("h2o_danube_1_8b", "prefill_32k", "single", True): 1924136960.0,
+    ("t5_large", "train_4k", "single", True): 2774703562.5,
+    ("qwen3_moe_30b_a3b", "train_4k", "single", True): 14837973119.5,
+    ("qwen2_1_5b", "train_4k", "multi", False): 3636212641.5}
 #: per-device FLOPs as run (the causal skip in) of the cells of
 #: DRYRUN_REFERENCE_FLOPS whose bar above is one-sided, as the port's own
 #: dry run traces them on the CPU (torch 2.13.0+cpu), made by
 #:   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch <arch> \
-#:     --shape <shape> --multi-pod single --layers <layers> --device cpu
+#:     --shape <shape> --multi-pod <mesh> --layers <layers> --device cpu \
+#:     [--baseline]
 #: (``hlo_flops/dev``): held within DRYRUN_TOL, two-sided, on the card.
-DRYRUN_PORT_FLOPS = {("qwen2_1_5b", "train_4k"): 7.542e12,
-                     ("gpt2_345m", "train_4k"): 1.836e12,
-                     ("phi3_medium_14b", "prefill_32k"): 8.702e12,
-                     ("jamba_v0_1_52b", "prefill_32k"): 2.983e13}
+DRYRUN_PORT_FLOPS = {
+    ("qwen2_1_5b", "train_4k", "single", False): 7.542e12,
+    ("gpt2_345m", "train_4k", "single", False): 1.836e12,
+    ("phi3_medium_14b", "prefill_32k", "single", False): 8.702e12,
+    ("jamba_v0_1_52b", "prefill_32k", "single", False): 2.983e13,
+    ("h2o_danube_1_8b", "prefill_32k", "single", True): 1.441e12,
+    ("t5_large", "train_4k", "single", True): 1.057e12,
+    ("qwen3_moe_30b_a3b", "train_4k", "single", True): 3.322e13,
+    ("qwen2_1_5b", "train_4k", "multi", False): 3.771e12}
 DRYRUN_TOL = 0.10
 # the roofline held to the train phase's measured step (its model,
 # batch and options): traced FLOPs == FlopCounterMode's, the predicted
@@ -3043,18 +3079,20 @@ def start_dryrun_cells(out_dir: str) -> list:
         [os.path.join(HERE, "src")]
         + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     started = []
-    for i, (arch, shape, pods, layers) in enumerate(DRYRUN_CELLS):
+    for i, cell in enumerate(DRYRUN_CELLS):
+        arch, shape, pods, layers, baseline = cell
         out = os.path.join(out_dir, f"cell{i}.csv")
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--multi-pod", pods, "--out", out,
                "--device", "cuda"]
         if layers:
             cmd += ["--layers", str(layers)]
+        if baseline:
+            cmd.append("--baseline")
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True, env=env,
                                 cwd=HERE)
-        started.append(((arch, shape, pods, layers), proc, out,
-                        time.perf_counter()))
+        started.append((cell, proc, out, time.perf_counter()))
     return started
 
 
@@ -3062,11 +3100,14 @@ def finish_dryrun_cells(started) -> list:
     """Wait for every cell; each must lower with all three terms > 0."""
     rows = []
     try:
-        for (arch, shape, pods, layers), proc, out, t0 in started:
+        for cell, proc, out, t0 in started:
+            arch, shape, pods, layers, baseline = cell
+            key = (arch, shape, pods, baseline)
+            tag = f"{arch}/{shape}/{pods}" + ("/baseline" if baseline else "")
             stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
             wall = time.perf_counter() - t0
             check(proc.returncode == 0,
-                  f"dry run of {arch}/{shape}/{pods} exited "
+                  f"dry run of {tag} exited "
                   f"{proc.returncode}: {stdout[-1500:]} {stderr[-1500:]}")
             with open(out) as f:
                 header, row = f.read().splitlines()
@@ -3078,28 +3119,29 @@ def finish_dryrun_cells(started) -> list:
             counts = [float(fields[k]) for k in
                       ("hlo_flops/dev", "hlo_bytes/dev", "coll_bytes/dev")]
             check(all(c > 0 for c in counts),
-                  f"{arch}/{shape}/{pods}: a roofline term is not > 0: {row}")
-            want = DRYRUN_REFERENCE_FLOPS.get((arch, shape))
+                  f"{tag}: a roofline term is not > 0: {row}")
+            want = DRYRUN_REFERENCE_FLOPS.get(key)
             low = (1 - DRYRUN_TOL) * want if want and shape.startswith(
                 ("decode", "long")) else 0.0
             check(want is None
                   or low <= counts[0] <= (1 + DRYRUN_TOL) * want,
-                  f"{arch}/{shape}/{pods}: {counts[0]:.4e} FLOPs a device, "
+                  f"{tag}: {counts[0]:.4e} FLOPs a device, "
                   f"the reference's {want}")
-            port = DRYRUN_PORT_FLOPS.get((arch, shape))
+            port = DRYRUN_PORT_FLOPS.get(key)
             check(port is None or abs(counts[0] - port) <= DRYRUN_TOL * port,
-                  f"{arch}/{shape}/{pods}: {counts[0]:.4e} FLOPs a device, "
+                  f"{tag}: {counts[0]:.4e} FLOPs a device, "
                   f"the port's on the CPU {port}")
-            want_coll = DRYRUN_REFERENCE_COLL.get((arch, shape))
+            want_coll = DRYRUN_REFERENCE_COLL.get(key)
             check(want_coll is None
                   or counts[2] <= (1 + DRYRUN_TOL) * want_coll,
-                  f"{arch}/{shape}/{pods}: {counts[2]:.4e} collective bytes "
+                  f"{tag}: {counts[2]:.4e} collective bytes "
                   f"a device, the reference's {want_coll}")
             traced = re.search(r"trace ([\d.]+)s", stdout)
             peak = re.search(r"memory: peak (\S+) B, arguments (\S+) B",
                              stdout)
             rows.append({"arch": arch, "shape": shape,
                          "mesh": fields["mesh"], "chips": int(fields["chips"]),
+                         "baseline": baseline,
                          "layers": layers or port_config(arch).n_layers,
                          "layers_full": port_config(arch).n_layers,
                          "row": row, "t_compute_ms": terms[0],

@@ -134,7 +134,7 @@ def loss_fn(cfg: ArchConfig, params, batch, opts=DEFAULT_OPTIONS):
     enc_out = encode(cfg, params, _encoder_input(cfg, params, batch, opts),
                      opts)
     h = decode_train(cfg, params, enc_out, batch["tokens"], opts)
-    h = L.rmsnorm(h, gather_fsdp(params["final_norm"]))
+    h = L.tp_input(L.rmsnorm(h, gather_fsdp(params["final_norm"])), opts)
     return cross_entropy(h, _head(cfg, params), batch["labels"])
 
 
@@ -210,6 +210,5 @@ def decode_step(cfg: ArchConfig, params, cache, batch,
         o = attend(q, ck, cv, cross_qpos, enc_pos)
         x = settle(x + _merge_heads(o) @ cp["wo"])
         x, _ = _ffn_block(cfg, lp["ffn"], x, opts)
-        x = settle(x)
     x = L.rmsnorm(x, gather_fsdp(params["final_norm"]))
     return (x @ _head(cfg, params))[:, 0], {**cache, "pos": pos + 1}

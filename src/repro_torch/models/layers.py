@@ -81,10 +81,45 @@ def _constrain(x: torch.Tensor, spec) -> torch.Tensor:
 
 def constrain(x: torch.Tensor, opts: ModelOptions) -> torch.Tensor:
     """Residual-stream sharding constraint: with ``opts.act_spec``, ``x``
-    placed by it on the current mesh; without, ``x`` as it is."""
+    placed by it on the current mesh; without, ``x`` with its pending
+    sums reduced (``sharding.settle``: Megatron's all-reduce after a
+    row-parallel product, as XLA reduces a block's output where no spec
+    places it). Left pending in the residual stream, the sum would meet
+    the next column-parallel weight, and DTensor would gather that
+    weight whole on every rank and reduce the (B, S, d_ff) product
+    instead."""
     if opts.act_spec is not None:
         return _constrain(x, opts.act_spec)
-    return x
+    return sharding.settle(x)
+
+
+class _SettledGrad(torch.autograd.Function):
+    """The identity, whose backward reduces the gradient's pending sums
+    (``sharding.settle``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sharding.settle(g)
+
+
+def tp_input(x: torch.Tensor, opts: ModelOptions) -> torch.Tensor:
+    """A block's input ``x`` as it enters tensor-parallel products, where
+    no ``opts.act_spec`` places the residual stream: the identity, whose
+    backward all-reduces the pending sum that the column-parallel
+    products leave in ``x``'s gradient (Megatron's ``f``, the
+    counterpart of :func:`constrain`'s all-reduce after a row-parallel
+    product). Left pending, that sum would flow back into the residual
+    stream and meet the row-parallel weights' backward, where DTensor
+    gathers them whole. With ``act_spec`` (Megatron-SP: the gather
+    before the block, whose backward reduce-scatters) and on plain
+    tensors, ``x`` as it is."""
+    if opts.act_spec is not None or not sharding.is_dtensor(x):
+        return x
+    return _SettledGrad.apply(x)
 
 
 def constrain_qkv(x: torch.Tensor, opts: ModelOptions,

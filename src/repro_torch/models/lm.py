@@ -378,6 +378,27 @@ def _rope_attend(cfg, q, k, v, q_pos, k_pos, opts, causal, cross):
                        opts=opts)
 
 
+def _attend_heads(cfg, q, k, v, h0, h1, kv0, q_pos, k_pos, opts, causal,
+                  cross):
+    """The attention of query heads [h0, h1) (q (B, Sq, (h1-h0)·hd))
+    over KV heads from kv0 on (k, v (B, Sk, ·, hd·n)), in
+    :func:`_rope_attend`; (B, Sq, (h1-h0)·hd). Each query head reads KV
+    head ``h // n_rep``; the KV heads are repeated where the query heads
+    do not read whole groups of them."""
+    b, sq, sk, hd = q.shape[0], q.shape[1], k.shape[1], cfg.head_dim
+    q = q.reshape(b, sq, h1 - h0, hd)
+    k, v = (t.reshape(b, sk, -1, hd) for t in (k, v))
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    idx = [g // n_rep - kv0 for g in range(h0, h1)]
+    n_kv = idx[-1] + 1
+    k, v = k[:, :, :n_kv], v[:, :, :n_kv]
+    per = len(idx) // n_kv
+    if idx != [j // max(per, 1) for j in range(len(idx))]:
+        k, v = k[:, :, idx], v[:, :, idx]
+    return _rope_attend(cfg, q, k, v, q_pos, k_pos, opts, causal,
+                        cross).reshape(b, sq, -1)
+
+
 def _exchange(pieces, shapes, dim, mesh, tp):
     """One ``all_to_all_single`` over mesh dimension ``tp``: ``pieces[j]``
     goes to rank j, a tensor of ``shapes[j]`` comes from it; the
@@ -445,18 +466,8 @@ def _attn_on_shards(cfg, p, h, src, q_pos, k_pos, opts, causal, cross, tp):
         if h1 == h0:       # padding only: k and v enter the graph too
             q = torch.cat([q, k, v], -1)
         else:
-            sq, sk = q.shape[1], k.shape[1]
-            q = q.reshape(b, sq, h1 - h0, hd)
-            k, v = (t.reshape(b, sk, kv1 - kv0, hd) for t in (k, v))
-            # the KV head of each query head; repeated where a rank's
-            # heads do not read whole groups of them
-            n_rep = cfg.n_heads // cfg.n_kv_heads
-            idx = [g // n_rep - kv0 for g in range(h0, h1)]
-            per = len(idx) // (kv1 - kv0)
-            if idx != [j // max(per, 1) for j in range(len(idx))]:
-                k, v = k[:, :, idx], v[:, :, idx]
-            q = _rope_attend(cfg, q, k, v, q_pos, k_pos, opts, causal,
-                             cross).reshape(b, sq, -1)
+            q = _attend_heads(cfg, q, k, v, h0, h1, kv0, q_pos, k_pos, opts,
+                              causal, cross)
         # all rows of my heads → my rows of all heads, in head order
         starts = [sum(q_rows[:r]) for r in range(n)]
         o = _exchange([q[:, s0:s0 + r] for s0, r in zip(starts, q_rows)],
@@ -475,18 +486,154 @@ def _attn_on_shards(cfg, p, h, src, q_pos, k_pos, opts, causal, cross, tp):
               *(sharding.place(p[k], mesh, whole) for k in names))
 
 
+def _column_split(h: torch.Tensor, p: Params, opts) -> Optional[int]:
+    """The mesh dimension over which the attention weights are split
+    Megatron's way — ``wq``, ``wk``, ``wv`` by columns and ``wo`` by rows
+    (``param_specs``' tensor-parallel rules), nothing else split — where
+    no ``opts.qkv_spec`` places the heads and ``h`` is whole on it; else
+    None."""
+    if opts.qkv_spec is not None or not is_dtensor(h):
+        return None
+    dims = set()
+    for name, d in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0)):
+        w = p[name]
+        if not is_dtensor(w):
+            return None
+        split = [i for i, q in enumerate(w.placements) if q.is_shard()]
+        if len(split) != 1 or not w.placements[split[0]].is_shard(d):
+            return None
+        dims.add(split[0])
+    if len(dims) != 1:
+        return None
+    tp = dims.pop()
+    return tp if h.placements[tp].is_replicate() else None
+
+
+#: the meshes with one dimension cut into groups of consecutive ranks
+#: (:func:`_rank_group`), by (id(mesh), dim, group size); each entry
+#: keeps its mesh alive, so that the id is not reused
+_GROUPS: Dict[tuple, tuple] = {}
+
+
+def _rank_group(mesh, tp: int, r: int):
+    """The group of the ``r`` consecutive ranks of mesh dimension ``tp``
+    that holds this rank, as ``(mesh, dim)`` for the functional
+    collectives: the dimension itself where ``r`` is its size, else a
+    dimension of a mesh of the same ranks with ``tp`` cut into (size /
+    r, r) (made once; every rank makes it, as it makes every mesh)."""
+    if r == mesh.size(tp):
+        return mesh, tp
+    key = (id(mesh), tp, r)
+    if key not in _GROUPS:
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.utils._python_dispatch import _disable_current_modes
+        shape = list(mesh.shape)
+        shape[tp:tp + 1] = [shape[tp] // r, r]
+        names = list(mesh.mesh_dim_names)
+        names[tp:tp + 1] = [f"{names[tp]}_groups", f"{names[tp]}_group"]
+        with _disable_current_modes():   # the mesh's own tensors are real
+            cut = DeviceMesh(mesh.device_type, mesh.mesh.reshape(shape),
+                             mesh_dim_names=tuple(names))
+        _GROUPS[key] = (mesh, cut)
+    return _GROUPS[key][1], tp + 1
+
+
+def _all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``t`` concatenated along ``dim`` over ``group`` (a functional
+    collectives' group) in rank order; differentiable: the backward
+    reduce-scatters."""
+    import torch.distributed._functional_collectives as funcol
+    # (the older name of the same gather in torch 2.11)
+    gather = getattr(funcol, "all_gather_single_autograd", None) \
+        or funcol.all_gather_tensor_autograd
+    got = gather(t.contiguous(), dim, group)
+    return got.wait() if isinstance(got, funcol.AsyncCollectiveTensor) \
+        else got
+
+
+def _attn_on_column_shards(cfg, p, h, src, q_pos, k_pos, opts, causal, cross,
+                           tp):
+    """The attention block's projections and attention, without the
+    residual, over DTensors whose weights are split over mesh dimension
+    ``tp`` Megatron's way (:func:`_column_split`), through ``local_map``,
+    as XLA splits the block when no spec places the heads: each rank
+    projects every row at its columns of ``wq``, ``wk`` and ``wv``; the
+    query heads are split over the g = gcd(heads, n) groups of n / g
+    consecutive ranks of ``tp`` (n its size), each group's ranks
+    gathering their columns into the group's heads (none where ``tp``
+    divides the heads), and the KV heads alike over their own groups;
+    each rank attends its group's heads, keeps its own columns of the
+    output and multiplies them by its rows of ``wo``: a pending sum over
+    ``tp``. A group's ranks repeat its attention, as XLA does. The
+    gradients of ``h`` (and ``src``) are pending sums over ``tp``; the
+    weights' are split as they are, summed over the batch's mesh
+    dimensions."""
+    import math
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = h.device_mesh
+    n = mesh.size(tp)
+    batch = [Shard(0) if q.is_shard(0) else Replicate()
+             for q in h.placements]
+    out = [Partial() if i == tp else q for i, q in enumerate(batch)]
+    names = sorted(k for k in p if k != "ln")
+    w_place = {k: [q if i == tp else Replicate()
+                   for i, q in enumerate(p[k].placements)] for k in names}
+    w_grad = {k: [q if i == tp else Partial() if batch[i].is_shard()
+                  else Replicate() for i, q in enumerate(w_place[k])]
+              for k in names}
+    r = n // math.gcd(cfg.n_heads, n)          # ranks a query group
+    r_kv = n // math.gcd(cfg.n_kv_heads, n)    # ranks a KV group
+    per, per_kv = cfg.n_heads * r // n, cfg.n_kv_heads * r_kv // n
+
+    def body(h, src, q_pos, k_pos, *ws):
+        w = dict(zip(names, ws))
+        me = mesh.get_local_rank(tp)
+        q, k, v = _qkv(cfg, w, h, src)
+        if r > 1:
+            q = _all_gather(q, q.ndim - 1, _rank_group(mesh, tp, r))
+        if r_kv > 1:
+            k, v = (_all_gather(t, t.ndim - 1, _rank_group(mesh, tp, r_kv))
+                    for t in (k, v))
+        h0 = me // r * per
+        o = _attend_heads(cfg, q, k, v, h0, h0 + per, me // r_kv * per_kv,
+                          q_pos, k_pos, opts, causal, cross)
+        cols = o.shape[-1] // r                # this rank's rows of wo
+        return o[..., me % r * cols:(me % r + 1) * cols] @ w["wo"]
+
+    fn = local_map(body, out_placements=out,
+                   in_placements=(batch, batch, batch, batch,
+                                  *(w_place[k] for k in names)),
+                   in_grad_placements=(out, out, batch, batch,
+                                       *(w_grad[k] for k in names)),
+                   device_mesh=mesh)
+    return fn(*(sharding.place(t, mesh, batch) for t in (h, src, q_pos,
+                                                         k_pos)),
+              *(sharding.place(p[k], mesh, w_place[k]) for k in names))
+
+
 def _attn_block(cfg, p, x, positions, opts, causal=True,
                 kv: Optional[tuple] = None):
     """Pre-norm attention with residual. kv: optional (k_src, k_pos) for
     cross-attention (enc-dec): K/V from ``k_src``, keys at ``k_pos``, no
     RoPE and no window. Heads that the mesh does not divide go through
     :func:`_attn_on_shards`."""
-    h = L.rmsnorm(x, p["ln"])
+    h = L.tp_input(L.rmsnorm(x, p["ln"]), opts)
+    if kv is not None:
+        kv = (L.tp_input(kv[0], opts), kv[1])
     tp = _uneven_heads(cfg, h, opts)
     if tp is not None:
         o = _attn_on_shards(cfg, p, h, h if kv is None else kv[0], positions,
                             positions if kv is None else kv[1], opts, causal,
                             kv is not None, tp)
+        return x + L.constrain(o, opts)
+    tp = _column_split(h, p, opts)
+    if tp is not None:
+        o = _attn_on_column_shards(
+            cfg, p, h, h if kv is None else kv[0], positions,
+            positions if kv is None else kv[1], opts, causal, kv is not None,
+            tp)
         return x + L.constrain(o, opts)
     h = _sp_gather(h, p["wq"])
     src = None if kv is None else _sp_gather(kv[0], p["wk"])
@@ -545,7 +692,7 @@ def _model_split_ffn(p, h, tp_axis: str = "model"):
 def _ffn_block(cfg, p, x, opts):
     """Pre-norm FFN with residual → (x, aux): the MoE router's
     load-balance loss, 0 for a dense FFN."""
-    h = L.rmsnorm(x, p["ln"])
+    h = L.tp_input(L.rmsnorm(x, p["ln"]), opts)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "router" in p:                       # MoE FFN
         y, aux = M.moe_ffn(h, p, cfg.moe, opts.moe_impl, opts)
@@ -606,12 +753,8 @@ def _ssm_on_shards(h, sp, scfg):
 
         def bc(x, w):
             m = x.shape[1] // n
-            # (the older name of the same gather in torch 2.11)
-            gather = getattr(funcol, "all_gather_single_autograd", None) \
-                or funcol.all_gather_tensor_autograd
-            t = gather(x[:, rank * m:(rank + 1) * m] @ w, 1, (mesh, tp))
-            return t.wait() if isinstance(
-                t, funcol.AsyncCollectiveTensor) else t
+            return _all_gather(x[:, rank * m:(rank + 1) * m] @ w, 1,
+                               (mesh, tp))
 
         return S.ssm_block(x, params, scfg, psum=lambda t: funcol.all_reduce(
             t, "sum", (mesh, tp)), bc=bc if x.shape[1] % n == 0 else None)
@@ -626,7 +769,8 @@ def _ssm_on_shards(h, sp, scfg):
 
 
 def _ssm_layer(cfg, p, x, opts):
-    h = gather_dim(L.rmsnorm(x, p["ln"]), 1)   # the scan reads it whole
+    # the scan reads it whole
+    h = L.tp_input(gather_dim(L.rmsnorm(x, p["ln"]), 1), opts)
     sp = {k: v for k, v in p.items() if k not in ("ln", "ffn")}
     block = _ssm_on_shards if is_dtensor(h) else S.ssm_block
     x = x + L.constrain(block(h, sp, cfg.ssm), opts)
@@ -962,7 +1106,7 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     plus 0.01 × the MoE load-balance loss (0 without MoE)."""
     x, positions = embed_inputs(cfg, params, batch, opts)
     x, aux = backbone(cfg, params, x, positions, opts)
-    x = L.rmsnorm(x, gather_fsdp(params["final_norm"]))
+    x = L.tp_input(L.rmsnorm(x, gather_fsdp(params["final_norm"])), opts)
     labels = batch["labels"]
     if labels.shape[1] != x.shape[1]:       # stub modality prefix: no loss
         labels = _pad_prefix(labels, x.shape[1] - labels.shape[1])
@@ -1179,14 +1323,14 @@ def _ssm_decode_layer(cfg, p, x, cache: S.SSMCache, opts):
     x = settle(x + y)
     if "ffn" in p:
         x, _ = _ffn_block(cfg, p["ffn"], x, opts)
-    return settle(x)
+    return x
 
 
 def _attn_decode_layer(cfg, lp, x, pos, kcache, opts):
     pa = {k: v for k, v in lp.items() if k != "ffn"}
     x = _attn_decode_block(cfg, pa, x, pos, kcache)
     x, _ = _ffn_block(cfg, lp["ffn"], x, opts)
-    return settle(x)
+    return x
 
 
 @torch.no_grad()

@@ -137,20 +137,81 @@ def moe_gather(x: torch.Tensor, params, mcfg: MoEConfig):
     """x: (B,S,d) → (B,S,d), probs. Static-shape gather MoE; the
     combine adds each token's rows in ascending expert order."""
     b, s, d = x.shape
-    t, e = b * s, mcfg.n_experts
+    t = b * s
     x2d = x.reshape(t, d)
     cap = capacity(t, mcfg)
     probs, topi, sel, order = _routing(x2d, params["router"], mcfg, cap)
 
     chosen = order[:cap].T                                  # (E,C) token ids
-    gatew = torch.gather(sel, 0, chosen.T).T                # (E,C)
+    # (E,C,d) gather; the gates (E,C)
+    xe, gatew = dispatch(x2d, sel, chosen, params["w_gate"])
     live = torch.isfinite(gatew)
     gatew = torch.where(live, gatew, 0.0)
 
-    xe = x2d[chosen.reshape(-1)].reshape(e, cap, d)         # (E,C,d) gather
     y = _experts(xe, params)
     y = y * gatew[..., None].to(y.dtype)
     return combine(y, order, topi).reshape(b, s, d), probs
+
+
+def dispatch(x2d: torch.Tensor, sel: torch.Tensor, chosen: torch.Tensor,
+             w_gate: torch.Tensor):
+    """The experts' slots (E, C, d) and their gates (E, C): token
+    ``chosen[e, c]``'s row of ``x2d`` and its gate ``sel[chosen[e, c],
+    e]`` at slot (e, c). On DTensors see :func:`_dispatch_on_shards`."""
+    e, cap = chosen.shape
+    if is_dtensor(x2d) and is_dtensor(w_gate):
+        return _dispatch_on_shards(x2d, sel, chosen, w_gate)
+    return (x2d[chosen.reshape(-1)].reshape(e, cap, x2d.shape[-1]),
+            torch.gather(sel, 0, chosen.T).T)
+
+
+def _dispatch_on_shards(x2d, sel, chosen, w_gate):
+    """:func:`dispatch` over DTensors, through ``local_map``, as the
+    reference's XLA gathers the tokens into the experts' slots: each rank
+    fills the slots of its own experts (the experts' weights' shard on
+    their mesh dimension) with the rows and gates of its own tokens
+    (x2d's shard of its rows; ``sel``'s of its rows and its experts'
+    columns) and zeros for the others, a pending sum over the tokens'
+    mesh dimensions that is then reduced (an all-reduce of the rank's
+    E/ep experts' slots, not a gather of every token on every rank).
+    Its backward adds each slot's gradient into its token's row and
+    gate on the rank that holds them: the rows' a pending sum over the
+    experts' mesh dimension, the gates' split by experts. Left to
+    DTensor, the gather all-gathers every token, the gates' backward
+    runs the router's on every token on every rank, and the rows'
+    backward, a scatter, meets placements it cannot fold (jamba's train
+    step under ``--baseline``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x2d.device_mesh
+    experts = [i for i, p in enumerate(w_gate.placements) if p.is_shard(0)]
+    tok = [Shard(0) if i not in experts and p.is_shard(0) else Replicate()
+           for i, p in enumerate(x2d.placements)]
+    rows = [i for i, p in enumerate(tok) if p.is_shard(0)]
+    ids = [Shard(0) if i in experts else Replicate()
+           for i in range(mesh.ndim)]
+    gates = [Shard(1) if i in experts else p for i, p in enumerate(tok)]
+    out = [Partial() if i in rows else q for i, q in enumerate(ids)]
+    x_grad = [Partial() if i in experts else p for i, p in enumerate(tok)]
+
+    def body(x, gates, ids):
+        first = 0
+        for i in rows:                       # this rank's first token row
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+        local = ids.long() - first * x.shape[0]
+        mine = (local >= 0) & (local < x.shape[0])
+        local = local.clamp(0, x.shape[0] - 1)
+        got = x[local.reshape(-1)].reshape(*ids.shape, x.shape[-1])
+        cols = torch.arange(ids.shape[0], device=ids.device)[:, None]
+        return (torch.where(mine[..., None], got, 0),
+                torch.where(mine, gates[local, cols], 0.0))
+
+    fn = local_map(body, out_placements=(out, out),
+                   in_placements=(tok, gates, ids),
+                   in_grad_placements=(x_grad, gates, ids), device_mesh=mesh)
+    xe, gatew = fn(place_on(x2d, mesh, tok), place_on(sel, mesh, gates),
+                   place_on(chosen, mesh, ids))
+    return settle(xe), settle(gatew)
 
 
 def _queue_rank(order: torch.Tensor) -> torch.Tensor:
@@ -257,9 +318,31 @@ def moe_ffn(x, params, mcfg: MoEConfig, impl: str = "gather", opts=None):
         y, probs = moe_dense_dispatch(x, params, mcfg)
     else:
         raise ValueError(impl)
-    me = probs.mean(0)                                      # (E,)
+    me = _expert_load(probs)                                # (E,)
     aux = mcfg.n_experts * torch.sum(me * me)
     return y, aux
+
+
+def _expert_load(probs: torch.Tensor) -> torch.Tensor:
+    """``probs.mean(0)``: each expert's mean gate over the tokens. On a
+    DTensor whose tokens are split, each rank sums its rows through
+    ``local_map``, a pending sum then reduced, and the backward gives
+    each rank its rows' gradient, split as the rows are. Left to
+    DTensor, the mean's gradient, a pending average over every token,
+    meets the gates' and the router's backward runs on every token on
+    every rank."""
+    if not is_dtensor(probs):
+        return probs.mean(0)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = probs.device_mesh
+    rows = [Shard(0) if p.is_shard(0) else Replicate()
+            for p in probs.placements]
+    out = [Partial() if p.is_shard() else Replicate() for p in rows]
+    fn = local_map(lambda p: p.sum(0), out_placements=out,
+                   in_placements=(rows,), in_grad_placements=(rows,),
+                   device_mesh=mesh)
+    return settle(fn(place_on(probs, mesh, rows))) / probs.shape[0]
 
 
 #: all-to-all exchanges made by :func:`moe_ep_a2a` (two a layer), beside

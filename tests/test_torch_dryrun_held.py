@@ -1,12 +1,23 @@
-"""Shared by ``tests/test_torch_dryrun_held_{train,prefill,decode}.py``
-(no tests of its own): every cell of the dry run's sweep — each
-architecture of ``list_archs()`` at each of its shapes — traced on the
-16 x 16 production mesh at full width and 1 layer (jamba one period of
-8), held to the reference's own dry run of the same cell.
+"""Shared by ``tests/test_torch_dryrun_held_{train,prefill,decode}.py``,
+``tests/test_torch_dryrun_baseline_{train,prefill,decode}.py`` and
+``tests/test_torch_dryrun_held_multipod.py`` (no tests of its own):
+every cell of the dry run's sweep — each architecture of
+``list_archs()`` at each of its shapes — traced on the 16 x 16
+production mesh at full width and 1 layer (jamba one period of 8), held
+to the reference's own dry run of the same cell.
+
+A cell is ``(arch, shape, layers, *modes)``: no mode is the default
+mapping on 16 x 16, ``"baseline"`` the paper-faithful mapping
+(``lower_cell(..., baseline=True)``: no ``act_spec``/``qkv_spec``, no
+FSDP, no ZeRO-1, the MoE under ``gather``) and ``"multi"`` the
+2 x 16 x 16 mesh with axes ``("pod", "data", "model")``
+(``"fsdp_cp"``, ``--mapping fsdp_cp``, is only tabled: see ROADMAP
+Queue 3).
 
 The reference's counts come from one child python per file,
 ``tests/test_torch_dryrun_ref.py --production <out.json>
-<arch>:<shape>:<layers> ...``, run by a module-scoped fixture. The
+<arch>:<shape>:<layers>[:baseline][:multi][:fsdp_cp] ...``, run by a
+module-scoped fixture. The
 port's come from ``repro_torch.launch.dryrun.lower_cell(...,
 device="cpu")``, its memory untracked. Both are per device. bert_large and
 bert_exlarge are one cell at one layer: each side traces it once.
@@ -22,9 +33,12 @@ Bars, as deviation (b) holds the blockwise attention:
   reference's, read from its HLO by the dots' shapes, equal their
   stated multiple of the port's, and what is left of each side once
   they are taken out is held within 10 %.
-* Collective bytes: at most 10 % over the reference's.
+* Collective bytes: at most 10 % over the reference's; for a cell of
+  :data:`COMBINED`, over the reference's with every operand of its
+  combined collectives counted (its own count reads one of each).
 """
 import dataclasses
+import itertools
 import json
 import pathlib
 import subprocess
@@ -42,9 +56,16 @@ from repro_torch.configs.base import (SHAPES, arch_shapes, get_config,
 from repro_torch.launch import dryrun as D
 
 CLOSE = 0.10
-#: the production mesh's (data, model) sizes, and the reference's
-#: cross-entropy chunk
+#: the production mesh's (data, model) sizes (data: the batch's shards
+#: on 16 x 16; ``pod`` doubles them on 2 x 16 x 16, :func:`data_of`),
+#: and the reference's cross-entropy chunk
 DATA, MODEL, CE_CHUNK = 16, 16, 512
+
+
+def data_of(modes):
+    """The batch's shards of a cell's mesh: ``data``, times ``pod``'s 2
+    on the multi-pod mesh."""
+    return DATA * (2 if "multi" in modes else 1)
 
 
 def layers_of(arch):
@@ -53,10 +74,10 @@ def layers_of(arch):
     return cfg.hybrid_period or 1
 
 
-def cells(kind):
-    """(arch, shape, layers) of every sweep cell whose shape is of
-    ``kind`` (train, prefill, or decode: decode_32k and long_500k)."""
-    return [(a, s.name, layers_of(a)) for a in list_archs()
+def cells(kind, *modes):
+    """(arch, shape, layers, *modes) of every sweep cell whose shape is
+    of ``kind`` (train, prefill, or decode: decode_32k and long_500k)."""
+    return [(a, s.name, layers_of(a), *modes) for a in list_archs()
             for s in arch_shapes(get_config(a)) if s.kind == kind]
 
 
@@ -74,24 +95,34 @@ def file_cells(name):
 
 
 def params(cells_):
-    return [pytest.param(*c, id="-".join(map(str, c))) for c in cells_]
+    """pytest params of ``cells_`` (arch, shape, layers), the modes left
+    out of the ids."""
+    return [pytest.param(*c[:3], id="-".join(map(str, c[:3])))
+            for c in cells_]
 
 
-def reference_fixture(name):
+def _lower_reference(cells_, out, timeout=None):
+    """The reference's counts of ``cells_`` by cell name, from one child
+    python writing ``out``."""
+    proc = subprocess.run(
+        [sys.executable, str(pathlib.Path(ref.__file__)), "--production",
+         str(out)] + [":".join(map(str, c)) for c in cells_],
+        capture_output=True, text=True, timeout=timeout,
+        env=ranks.child_env(JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(pathlib.Path(out).read_text())
+
+
+def reference_fixture(name, cells_=None):
     """A module-scoped fixture: the reference's ``hlo_stats`` of
-    ``file_cells(name)`` by ``arch/shape/layers``, from one child python
-    (run before the port traces: on one core the two would only share
-    it)."""
+    ``cells_`` (default ``file_cells(name)``) by cell name
+    (``test_torch_dryrun_ref.cell_key``), from one child python (run
+    before the port traces: on one core the two would only share it)."""
     @pytest.fixture(scope="module")
     def reference(tmp_path_factory):
         out = tmp_path_factory.mktemp(f"held_{name}") / "ref.json"
-        proc = subprocess.run(
-            [sys.executable, str(pathlib.Path(ref.__file__)), "--production",
-             str(out)] + [":".join(map(str, c)) for c in file_cells(name)],
-            capture_output=True, text=True, timeout=900,
-            env=ranks.child_env(JAX_PLATFORMS="cpu"))
-        assert proc.returncode == 0, proc.stderr[-3000:]
-        return json.loads(out.read_text())
+        return _lower_reference(file_cells(name) if cells_ is None
+                                else cells_, out, timeout=900)
     return reference
 
 
@@ -114,7 +145,7 @@ def _ref_dots(dots, keep):
                          for part in key.split("|"))))
 
 
-def _head_rows(records, dots, cfg, shape):
+def _head_rows(records, dots, cfg, shape, modes=()):
     """A train cell whose vocabulary ``model`` does not divide: the
     port's head multiplies each rank's rows once (its rows of the
     sequence, split over ``model``, by the whole head: forward, and the
@@ -126,7 +157,7 @@ def _head_rows(records, dots, cfg, shape):
     vocabulary among its dims), to ``S / 512`` times the port's, both
     exactly; returns (the port's, the reference's)."""
     seq = SHAPES[shape].seq_len // (2 if cfg.enc_dec else 1)
-    rows = SHAPES[shape].global_batch // DATA * (seq // MODEL)
+    rows = SHAPES[shape].global_batch // data_of(modes) * (seq // MODEL)
     d, v = cfg.d_model, cfg.vocab
     # the forward, x's gradient, and the head's in either layout
     # (a tied head is the table's transpose)
@@ -139,7 +170,7 @@ def _head_rows(records, dots, cfg, shape):
     return head, want
 
 
-def _whole_down(records, dots, cfg, shape):
+def _whole_down(records, dots, cfg, shape, modes=()):
     """The hybrid's prefill: the port splits the dense FFN over
     ``model`` (Megatron's column- and row-parallel products). The
     reference's XLA splits its up and gate products by rows and runs the
@@ -149,7 +180,8 @@ def _whole_down(records, dots, cfg, shape):
     ``model`` times the port's, both exactly; returns (the port's, the
     reference's)."""
     from repro_torch.models.lm import hybrid_ssm_split
-    rows = SHAPES[shape].global_batch // DATA * SHAPES[shape].seq_len
+    rows = SHAPES[shape].global_batch // data_of(modes) * \
+        SHAPES[shape].seq_len
     f, d = cfg.d_ff // MODEL, cfg.d_model
     n_dense = hybrid_ssm_split(cfg)[1] * (cfg.n_layers // cfg.hybrid_period)
     down = _product_flops(records, (rows, f, d))
@@ -160,14 +192,84 @@ def _whole_down(records, dots, cfg, shape):
     return down, want
 
 
-#: (arch, shape) → the stated cause of work the reference does and the
-#: port does not: a function (records, the reference's ``dots``, cfg,
-#: shape) → (the port's FLOPs of that kind, the reference's), each held
-#: to its formula; the rest of each side is held within 10 %
-CAUSES = {**{(a, "train_4k"): _head_rows
+def _whole_ffn(records, dots, cfg, shape, modes=()):
+    """The hybrid under ``--baseline``: the port splits the dense FFN
+    over ``model`` (:func:`repro_torch.models.lm._model_split_ffn`,
+    Megatron's column- and row-parallel products). Its weights sit in a
+    (period, layer) stack that the positional rule leaves whole on
+    ``model``, and with no spec to split the rows the reference's XLA
+    runs all three products whole on every rank: ``model`` times the
+    port's. Holds the port's products (rows, d) x (d, d_ff / model) and
+    (rows, d_ff / model) x (d_ff / model, d), each layout, to their
+    formula — 3 a dense layer in prefill; in train 12 (forward,
+    recompute, the two gradients of each), less the period's last down
+    product, which the checkpoint's recompute does not rerun (it stops
+    once the backward has every tensor it saved) — and the reference's,
+    read from its HLO (every dot with the whole d_ff and the rows among
+    its dims), to ``model`` times the port's 3 or 12 a layer; returns
+    (the port's, the reference's)."""
+    from repro_torch.models.lm import hybrid_ssm_split
+    rows = SHAPES[shape].global_batch // data_of(modes) * \
+        SHAPES[shape].seq_len
+    f, d = cfg.d_ff // MODEL, cfg.d_model
+    n_dense = hybrid_ssm_split(cfg)[1] * (cfg.n_layers // cfg.hybrid_period)
+    unit = 2 * rows * f * d
+    each = list(itertools.permutations((rows, f, d)))
+    port = _product_flops(records, *each)
+    n = {"prefill": 3, "train": 12}[SHAPES[shape].kind]
+    rerun = 1 if SHAPES[shape].kind == "train" else 0
+    assert port == (n * n_dense - rerun) * unit, (port / unit, n_dense)
+    want = _ref_dots(dots, lambda *dims: (any(cfg.d_ff in t for t in dims)
+                                          and any(rows in t for t in dims)))
+    assert want == pytest.approx(MODEL * n * n_dense * unit, rel=1e-12), (
+        want / unit, n_dense)
+    return port, want
+
+
+def _pod_ffn(records, dots, cfg, shape, modes=()):
+    """The hybrid's decode on 2 x 16 x 16: the port computes its dense
+    FFN (whole weights, as XLA keeps them in decode) on each rank's rows
+    of the batch, split over ``("pod", "data")``. The reference's XLA
+    splits those rows over ``data`` only and repeats them over ``pod``:
+    twice the port's. Holds the port's products (rows, d) x (d, d_ff)
+    and (rows, d_ff) x (d_ff, d), 3 a dense layer, to their formula and
+    the reference's, read from its HLO (the same products at twice the
+    rows), to twice the port's, both exactly; returns (the port's, the
+    reference's)."""
+    from repro_torch.models.lm import hybrid_ssm_split
+    rows = SHAPES[shape].global_batch // data_of(modes)
+    d, f = cfg.d_model, cfg.d_ff
+    n_dense = hybrid_ssm_split(cfg)[1] * (cfg.n_layers // cfg.hybrid_period)
+    port = _product_flops(records, (rows, d, f), (rows, f, d))
+    assert port == n_dense * 3 * 2 * rows * d * f, (port, n_dense)
+    want = _ref_dots(dots, lambda res, lhs, rhs: lhs in (
+        (2 * rows, d), (2 * rows, f)) and rhs in ((d, f), (f, d)))
+    assert want == pytest.approx(2 * port, rel=1e-12), (want, port)
+    return port, want
+
+
+#: (arch, shape, modes) → the stated cause of work the reference does
+#: and the port does not: a function (records, the reference's ``dots``,
+#: cfg, shape, modes) → (the port's FLOPs of that kind, the
+#: reference's), each held to its formula; the rest of each side is held
+#: within 10 %
+CAUSES = {**{(a, "train_4k", m): _head_rows
              for a in ("gpt2_345m", "bert_large", "bert_exlarge",
-                       "mamba2_2_7b", "whisper_tiny")},
-          ("jamba_v0_1_52b", "prefill_32k"): _whole_down}
+                       "mamba2_2_7b", "whisper_tiny")
+             for m in ((), ("multi",))},
+          **{("jamba_v0_1_52b", "prefill_32k", m): _whole_down
+             for m in ((), ("multi",))},
+          **{("jamba_v0_1_52b", s, ("baseline",)): _whole_ffn
+             for s in ("train_4k", "prefill_32k")},
+          ("jamba_v0_1_52b", "decode_32k", ("multi",)): _pod_ffn}
+
+#: cells whose collective bytes are held to the reference's with every
+#: operand of its combined collectives counted
+#: (``test_torch_dryrun_ref.every_operand_total``): XLA merges a layer's
+#: all-reduces into tuple-shaped ones, of which ``hlo_stats`` counts the
+#: first operand only (``src/repro/core/roofline.py`` ``_INSTR_RE``)
+COMBINED = {("t5_large", "train_4k", ("baseline",)),
+            ("whisper_tiny", "prefill_32k", ("baseline",))}
 
 
 #: the port's trace of each cell, by its config (names aside) and shape:
@@ -192,11 +294,13 @@ class _NoMemTracker:
         return {}
 
 
-def _trace(arch, shape, layers, monkeypatch):
+def _trace(arch, shape, layers, monkeypatch, modes=()):
     """(flops as run, skipped pairs' flops, collective bytes, records)
-    of the port's cell, traced once, its memory untracked."""
+    of the port's cell in ``modes``, traced once, its memory
+    untracked."""
     cfg = D.cell_config(arch, layers=layers)
-    key = (repr(dataclasses.replace(cfg, name="", source="")), shape)
+    key = (repr(dataclasses.replace(cfg, name="", source="")), shape,
+           tuple(modes))
     if key not in _TRACES:
         skipped = dr._skipped_pairs_flops(monkeypatch)
         traced = {}
@@ -210,24 +314,38 @@ def _trace(arch, shape, layers, monkeypatch):
         monkeypatch.setattr(D, "trace_step", keep)
         from torch.distributed._tools import mem_tracker
         monkeypatch.setattr(mem_tracker, "MemTracker", _NoMemTracker)
-        rep, _ = D.lower_cell(arch, shape, False, device="cpu",
-                              layers=layers)
+        rep, _ = D.lower_cell(arch, shape, "multi" in modes,
+                              "baseline" in modes,
+                              "fsdp_cp" if "fsdp_cp" in modes else "tp_sp",
+                              device="cpu", layers=layers)
         _TRACES[key] = (rep.hlo_flops, sum(skipped), rep.coll_bytes,
                         traced["records"])
     return _TRACES[key]
 
 
-def check_cell(reference, arch, shape, layers, monkeypatch):
+def check_cell(reference, arch, shape, layers, monkeypatch, modes=()):
     """Trace the port's cell once and hold it to the reference's."""
-    flops, skipped, coll, records = _trace(arch, shape, layers, monkeypatch)
-    want = reference[f"{arch}/{shape}/{layers}"]
+    flops, skipped, coll, records = _trace(arch, shape, layers, monkeypatch,
+                                           modes)
+    want = reference[ref.cell_key(arch, shape, layers, *modes)]
     every, total = residual(want, flops + skipped, records, arch, shape,
-                            layers)
+                            layers, modes)
     assert abs(every - total) <= CLOSE * total, (every, total)
-    assert 0 < coll <= (1 + CLOSE) * want["total"], (coll, want["total"])
+    assert 0 < coll <= (1 + CLOSE) * coll_bar(want, arch, shape, modes), (
+        coll, want["total"], want["every_operand"])
 
 
-def residual(want, every, records, arch, shape, layers):
+def coll_bar(want, arch, shape, modes=()):
+    """The reference's collective bytes a cell is held to: its count, or
+    for a cell of :data:`COMBINED` its count with every operand of its
+    combined collectives, which must then exceed its count."""
+    if (arch, shape, tuple(modes)) not in COMBINED:
+        return want["total"]
+    assert want["every_operand"] > want["total"]
+    return want["every_operand"]
+
+
+def residual(want, every, records, arch, shape, layers, modes=()):
     """(the port's no-skip FLOPs ``every``, the reference's) less, for a
     cell of :data:`CAUSES`, each side's products of the stated cause,
     held to their formulas first; the reference's dots by shape must sum
@@ -235,47 +353,58 @@ def residual(want, every, records, arch, shape, layers):
     assert sum(want["dots"].values()) == pytest.approx(want["flops"],
                                                        rel=1e-12)
     total = want["flops"]
-    cause = CAUSES.get((arch, shape))
+    cause = CAUSES.get((arch, shape, tuple(modes)))
     if cause is not None:
         port, ref_part = cause(records, want["dots"],
-                               D.cell_config(arch, layers=layers), shape)
+                               D.cell_config(arch, layers=layers), shape,
+                               modes)
         every, total = every - port, total - ref_part
     return every, total
 
 
-def table(kinds):
-    """Print one markdown row per cell of ``kinds``: the port's no-skip
-    FLOPs over the reference's (and, for a cell of :data:`CAUSES`, the
-    rest of each side's over each other, the products of the cause held
-    to their formulas and taken out) and its collective bytes over the
-    reference's."""
+def table(kinds, modes=()):
+    """Print one markdown row per cell of ``kinds`` in ``modes``: the
+    port's no-skip FLOPs over the reference's (and, for a cell of
+    :data:`CAUSES`, the rest of each side's over each other, the
+    products of the cause held to their formulas and taken out) and its
+    collective bytes over the reference's. A cell that does not lower
+    says so."""
     import tempfile
-    all_cells = [c for k in kinds for c in cells(k)]
+    all_cells = [c for k in kinds for c in cells(k, *modes)]
     with tempfile.TemporaryDirectory() as tmp:
-        out = pathlib.Path(tmp) / "ref.json"
-        proc = subprocess.run(
-            [sys.executable, str(pathlib.Path(ref.__file__)), "--production",
-             str(out)] + [":".join(map(str, c)) for c in all_cells],
-            capture_output=True, text=True,
-            env=ranks.child_env(JAX_PLATFORMS="cpu"))
-        assert proc.returncode == 0, proc.stderr[-3000:]
-        want = json.loads(out.read_text())
-    print("| cell (16×16) | FLOPs port / ref | held to its cause "
-          "| coll. bytes port / ref |")
+        want = _lower_reference(all_cells, pathlib.Path(tmp) / "ref.json")
+    mesh = "2×16×16" if "multi" in modes else "16×16"
+    print(f"| cell ({', '.join([mesh, *[m for m in modes if m != 'multi']])})"
+          " | FLOPs port / ref | held to its cause | coll. bytes port / ref |")
     print("|---|---|---|---|")
-    for arch, shape, layers in all_cells:
-        w = want[f"{arch}/{shape}/{layers}"]
-        with pytest.MonkeyPatch.context() as mp:
-            flops, skipped, coll, records = _trace(arch, shape, layers, mp)
-        every, total = residual(w, flops + skipped, records, arch, shape,
-                                layers)
-        held = "" if (arch, shape) not in CAUSES else \
-            f"{every / total:.3f}"
+    for arch, shape, layers, *_ in all_cells:
+        w = want[ref.cell_key(arch, shape, layers, *modes)]
+        try:
+            with pytest.MonkeyPatch.context() as mp:
+                flops, skipped, coll, records = _trace(arch, shape, layers,
+                                                       mp, modes)
+        except Exception as e:             # noqa: BLE001 - a table row
+            print(f"| {arch} {shape} ({layers}) | does not lower: "
+                  f"{type(e).__name__} | | |", flush=True)
+            continue
+        try:
+            every, total = residual(w, flops + skipped, records, arch, shape,
+                                    layers, modes)
+            held = "" if (arch, shape, tuple(modes)) not in CAUSES else \
+                f"{every / total:.3f}"
+        except AssertionError:             # a table row: the cause unmet
+            held = "cause not met"
+        combined = "" if (arch, shape, tuple(modes)) not in COMBINED else \
+            f" ({coll / coll_bar(w, arch, shape, modes):.2f} of every operand)"
         print(f"| {arch} {shape} ({layers}) | "
               f"{(flops + skipped) / w['flops']:.3f} | {held} | "
-              f"{coll / w['total']:.2f} |", flush=True)
+              f"{coll / w['total']:.2f}{combined} |", flush=True)
 
 
 if __name__ == "__main__":
-    # python tests/test_torch_dryrun_held.py [train] [prefill] [decode]
-    table(sys.argv[1:] or ["train", "prefill", "decode"])
+    # python tests/test_torch_dryrun_held.py [--baseline] [--multi]
+    #     [--fsdp_cp] [train] [prefill] [decode]
+    args = sys.argv[1:]
+    chosen = tuple(m for m in ref.MODES if f"--{m}" in args)
+    table([a for a in args if not a.startswith("--")]
+          or ["train", "prefill", "decode"], chosen)

@@ -17,12 +17,19 @@ imports it.
 
     python tests/test_torch_dryrun_ref.py <out.json>
     python tests/test_torch_dryrun_ref.py --production <out.json> \
-        <arch>:<shape>:<layers> ...
+        <arch>:<shape>:<layers>[:baseline][:multi][:fsdp_cp] ...
 
-The second form lowers full-width cells on the 16 x 16 production mesh
-at a depth cut (:func:`production_cells`), for
-``tests/test_torch_dryrun_held_{train,prefill,decode}.py`` and
-``chip_smoke.py``'s ``DRYRUN_REFERENCE_FLOPS`` / ``DRYRUN_REFERENCE_COLL``.
+The second form lowers full-width cells on the production mesh at a
+depth cut (:func:`production_cells`), for
+``tests/test_torch_dryrun_held_*.py``,
+``tests/test_torch_dryrun_baseline_*.py`` and ``chip_smoke.py``'s
+``DRYRUN_REFERENCE_FLOPS`` / ``DRYRUN_REFERENCE_COLL``: on 16 x 16 with
+the default mapping, or in the cell's named mode — ``baseline``, the
+reference's ``lower_cell(..., baseline=True)`` (the paper-faithful
+mapping), ``multi``, the 2 x 16 x 16 mesh with axes ``("pod",
+"data", "model")``, and ``fsdp_cp``, ``--mapping fsdp_cp`` (no tensor
+parallelism, the sequence over ``model``, ZeRO-3). A cell's name is ``arch/shape/layers`` followed by
+its modes (:func:`cell_key`).
 """
 import json
 import sys
@@ -181,14 +188,69 @@ def dot_flops(hlo_text):
     return out
 
 
+def every_operand_total(hlo_text):
+    """``hlo_stats(hlo_text)["total"]`` with every operand of a combined
+    (tuple-shaped) collective counted: XLA's combiner merges several
+    all-reduces into one instruction whose result is a tuple, and
+    ``hlo_stats`` reads a collective's first shape only
+    (``repro.core.roofline._INSTR_RE``), so it counts one operand of
+    each. Each such instruction is split into one line an operand (its
+    groups, reducer and operand kept), and ``hlo_stats`` counts them by
+    its own rules."""
+    import re
+    from repro.core import roofline as RR
+    line_re = re.compile(
+        r"^(\s*(?:ROOT )?%)([\w.\-]+)( = )\((.*?)\) ("
+        + "|".join(RR._COLL_OPS) + r")(-start)?\(([^)]*)\)(.*)$")
+    shape_re = re.compile(r"\w+\[[0-9,]*\](?:\{[0-9,]*\})?")
+    out = []
+    for line in hlo_text.splitlines():
+        m = line_re.match(line)
+        shapes = shape_re.findall(m.group(4)) if m else []
+        operands = re.findall(r"%[\w.\-]+", m.group(7)) if m else []
+        if not m or len(shapes) < 2 or len(shapes) != len(operands):
+            out.append(line)
+            continue
+        pre, name, eq, _, op, start, _, rest = m.groups()
+        out += [f"{pre}{name}.operand{i}{eq}{sh} {op}{start or ''}({o}){rest}"
+                for i, (sh, o) in enumerate(zip(shapes, operands))]
+    return RR.hlo_stats("\n".join(out))["total"]
+
+
+#: the modes a production cell may name, after its layers
+MODES = ("baseline", "multi", "fsdp_cp")
+
+
+def cell_key(arch, shape, layers, *modes):
+    """The name of a production cell: ``arch/shape/layers``, then each
+    of its modes (in :data:`MODES` order)."""
+    return "/".join([arch, shape, str(layers)]
+                    + [m for m in MODES if m in modes])
+
+
+def parse_cell(text):
+    """``arch:shape:layers[:baseline][:multi][:fsdp_cp]`` → (arch, shape,
+    layers, baseline, multi, mapping)."""
+    arch, shape, layers, *modes = text.split(":")
+    unknown = set(modes) - set(MODES)
+    if unknown:
+        raise ValueError(f"unknown mode(s) {sorted(unknown)} in {text!r}")
+    return (arch, shape, int(layers), "baseline" in modes, "multi" in modes,
+            "fsdp_cp" if "fsdp_cp" in modes else "tp_sp")
+
+
 def production_cells(out_json, cells):
-    """``hlo_stats`` of each (arch, shape, layers) of ``cells`` as the
-    reference's own dry run lowers it on the 16 x 16 production mesh, its
-    config cut to ``layers`` (widths kept), by cell name
-    ``arch/shape/layers``, with its dot FLOPs by shape under ``dots``
-    (:func:`dot_flops`). Its ``repro.launch.dryrun`` is imported first
-    (it sets ``XLA_FLAGS`` to 512 devices); the mesh's axes are ``Auto``,
-    as above."""
+    """``hlo_stats`` of each (arch, shape, layers, baseline, multi,
+    mapping) of ``cells`` as the reference's own dry run lowers it on its
+    production mesh — 16 x 16, or 2 x 16 x 16 with ``multi`` — in the
+    paper-faithful mapping with ``baseline``, in ``mapping`` (``tp_sp``
+    or ``fsdp_cp``), its config cut to ``layers`` (widths
+    kept), by cell name (:func:`cell_key`), with its dot FLOPs by shape
+    under ``dots`` (:func:`dot_flops`) and its collective bytes with
+    every operand of a combined collective counted under
+    ``every_operand`` (:func:`every_operand_total`). Its ``repro.launch.dryrun`` is
+    imported first (it sets ``XLA_FLAGS`` to 512 devices); the mesh's
+    axes are ``Auto``, as above."""
     import dataclasses
     import os
     import warnings
@@ -202,41 +264,49 @@ def production_cells(out_json, cells):
     import jax
     from repro.core import roofline as RR
 
-    RD.make_production_mesh = lambda multi_pod=False: jax.make_mesh(
-        (16, 16), ("data", "model"),
-        axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    def production_mesh(multi_pod=False):
+        shape, axes = (((2, 16, 16), ("pod", "data", "model")) if multi_pod
+                       else ((16, 16), ("data", "model")))
+        return jax.make_mesh(shape, axes, axis_types=(
+            jax.sharding.AxisType.Auto,) * len(axes))
+
+    RD.make_production_mesh = production_mesh
     config_of = RD.get_config
     analyze = RR.analyze
     out, seen = {}, {}
-    for arch, shape, layers in cells:
+    for arch, shape, layers, baseline, multi, mapping in cells:
+        name = cell_key(arch, shape, layers,
+                        *(["baseline"] if baseline else []),
+                        *(["multi"] if multi else []),
+                        *([mapping] if mapping != "tp_sp" else []))
         cfg = dataclasses.replace(config_of(arch), n_layers=layers)
-        same = (repr(dataclasses.replace(cfg, name="", source="")), shape)
+        same = (repr(dataclasses.replace(cfg, name="", source="")), shape,
+                baseline, multi, mapping)
         if same in seen:       # bert_large and bert_exlarge at one layer
-            out[f"{arch}/{shape}/{layers}"] = out[seen[same]]
+            out[name] = out[seen[same]]
             continue
-        seen[same] = f"{arch}/{shape}/{layers}"
+        seen[same] = name
         stats = {}
 
         def keep_stats(arch, shape, mesh_name, n_chips, cost, hlo, *a, **k):
-            stats.update(RR.hlo_stats(hlo), dots=dot_flops(hlo))
+            stats.update(RR.hlo_stats(hlo), dots=dot_flops(hlo),
+                         every_operand=every_operand_total(hlo))
             return analyze(arch, shape, mesh_name, n_chips, cost, hlo, *a,
                            **k)
         RD.get_config = lambda a, _n=layers: dataclasses.replace(
             config_of(a), n_layers=_n)
         RD.roofline.analyze = keep_stats
         try:
-            RD.lower_cell(arch, shape, False)
+            RD.lower_cell(arch, shape, multi, baseline, mapping)
         finally:
             RD.get_config, RD.roofline.analyze = config_of, analyze
-        out[f"{arch}/{shape}/{layers}"] = stats
+        out[name] = stats
     with open(out_json, "w") as f:
         json.dump(out, f)
 
 
 if __name__ == "__main__":
     if sys.argv[1] == "--production":
-        production_cells(sys.argv[2], [
-            (a, s, int(n)) for a, s, n in
-            (c.split(":") for c in sys.argv[3:])])
+        production_cells(sys.argv[2], [parse_cell(c) for c in sys.argv[3:]])
     else:
         reference_cells(sys.argv[1])

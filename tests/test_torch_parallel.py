@@ -67,7 +67,7 @@ def worlds(tmp_path_factory):
     base = tmp_path_factory.mktemp("ranks")
     jobs = {2: ["ring", "ring_grad", "ep", "attention", "attention_rkv"],
             4: ["ring", "ring_grad", "ep", "fsdp_step", "decode",
-                "tp_step", "uneven", "serve_decode"]}
+                "tp_step", "uneven", "serve_decode", "baseline"]}
     with ThreadPoolExecutor(2) as pool:
         futures = {n: pool.submit(ranks.run, jobs[n], n, base / f"w{n}")
                    for n in jobs}
@@ -644,6 +644,66 @@ def test_uneven_heads_and_vocabulary_on_a_mesh_match_the_reference(
     model = ref_api.build_model(ref_cfg, RL.ModelOptions(
         dtype=jnp.float32, remat=False, attn_impl="naive"))
     key = f"uneven/{arch}/{kind}"
+    _, outs = worlds[4]
+    tree, batch = _reference_inputs(outs[0], key)
+    if kind == "train":
+        want = float(model.loss(tree, batch))
+        for o in outs:
+            np.testing.assert_allclose(o[f"{key}/loss"], want, rtol=1e-5)
+        return
+    want = np.asarray(model.forward(tree, batch))
+    for o in outs:
+        np.testing.assert_allclose(o[f"{key}/logits"], want, atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(ranks.BASELINE))
+def test_baseline_train_step_equals_the_plain_step(worlds, name):
+    """A smoke config on its mesh under the dry run's ``--baseline``
+    options and placements (``ranks.BASELINE``: no residual-stream or
+    head spec, weights split over ``model`` alone): Megatron's column-
+    then row-parallel products with each block's output and its input's
+    gradient all-reduced, attention on each rank's heads — whole heads,
+    2 heads gathered by groups of 2 of 4 ranks, 3 heads by the whole of
+    ``model`` — and the MoE's tokens gathered into each rank's experts'
+    slots by hand. The loss and the gradient norm are the plain step's
+    (``train_check``'s bars: rtol 1e-5, 1e-4)."""
+    _, outs = worlds[4]
+    for o in outs:
+        key = f"baseline/{name}/train"
+        np.testing.assert_allclose(o[f"{key}/loss"], o[f"{key}/want_loss"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(o[f"{key}/grad_norm"],
+                                   o[f"{key}/want_grad_norm"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(ranks.BASELINE))
+def test_baseline_prefill_equals_the_plain_forward(worlds, name):
+    """The same configs' prefill logits on their meshes under
+    ``--baseline`` equal the plain forward's (fp32, 1e-5)."""
+    _, outs = worlds[4]
+    for o in outs:
+        key = f"baseline/{name}/prefill"
+        np.testing.assert_allclose(o[f"{key}/logits"],
+                                   o[f"{key}/want_logits"], atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+@pytest.mark.parametrize("name", sorted(ranks.BASELINE))
+def test_baseline_on_a_mesh_matches_the_reference(worlds, name, kind):
+    """The same runs against the reference's own loss and prefill logits
+    (plain, fp32, naive attention, the MoE under ``gather``) on the same
+    parameters and batch: the loss at rtol 1e-5, the logits at 1e-5."""
+    from repro.configs.base import get_config as ref_get_config
+    from repro.configs.base import smoke_config as ref_smoke_config
+    from repro.models import api as ref_api
+    arch, widths, _ = ranks.BASELINE[name]
+    ref_cfg = dataclasses.replace(ref_smoke_config(ref_get_config(arch)),
+                                  **widths)
+    model = ref_api.build_model(ref_cfg, RL.ModelOptions(
+        dtype=jnp.float32, remat=False, attn_impl="naive"))
+    key = f"baseline/{name}/{kind}"
     _, outs = worlds[4]
     tree, batch = _reference_inputs(outs[0], key)
     if kind == "train":

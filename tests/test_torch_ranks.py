@@ -683,6 +683,87 @@ def port_uneven(rank, world):
     return out
 
 
+#: the ``baseline`` job's configs under the dry run's ``--baseline``
+#: options, with their overrides and (data, model) mesh: the dense
+#: smoke model (heads and KV heads split over ``model``, Megatron's
+#: products); with 2 heads over 4 ranks (each head's columns gathered
+#: by its group of 2 consecutive ranks, the KV head by all 4); with 3
+#: heads, one KV head and a vocabulary of 257 on (2, 2) (the heads'
+#: groups the whole of ``model``, the vocabulary whole); and the MoE
+#: smoke model under ``gather`` (its tokens gathered into each rank's
+#: experts' slots by hand)
+BASELINE = {"qwen2_1_5b": ("qwen2_1_5b", {}, (2, 2)),
+            "qwen2_1_5b-2heads": ("qwen2_1_5b",
+                                  dict(n_heads=2, n_kv_heads=1), (1, 4)),
+            "qwen2_1_5b-3heads": ("qwen2_1_5b", dict(
+                d_model=48, n_heads=3, n_kv_heads=1, vocab=257), (2, 2)),
+            "qwen3_moe_30b_a3b": ("qwen3_moe_30b_a3b", {}, (2, 2))}
+
+
+def port_baseline(rank, world):
+    """The train step and the prefill of each :data:`BASELINE` config on
+    its mesh under the dry run's ``--baseline`` options and placements
+    (weights split over ``model`` alone, no ZeRO-1), in fp32, beside the
+    plain step and forward (port), with the parameters and the batch,
+    for the reference's loss and logits on the same inputs."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig, get_config, smoke_config
+    from repro_torch.launch.dryrun import fsdp_axes, model_options
+    from repro_torch.models.api import build_model, make_batch
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_prefill_step, make_train_step
+    from repro_torch.train.tree import leaf_paths
+    out = {}
+    for name, (arch, widths, dims) in BASELINE.items():
+        mesh = init_device_mesh("cpu", dims, mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(smoke_config(get_config(arch)), **widths)
+        for kind in ("train", "prefill"):
+            shape = ShapeConfig(f"baseline_{kind}", 64, 4, kind)
+            opts = dataclasses.replace(
+                model_options(cfg, shape, mesh, baseline=True),
+                dtype=torch.float32)
+            params = build_model(cfg, opts).init(
+                torch.Generator().manual_seed(0), "cpu")
+            batch = make_batch(cfg, shape, torch.Generator().manual_seed(1),
+                               "cpu", opts)
+            fsdp, model_axis = fsdp_axes(cfg, shape, mesh, True, "tp_sp")
+            pspecs = sh.param_specs(params, mesh, model_axis=model_axis,
+                                    fsdp_axes=fsdp)
+            dbatch = sh.distribute_tree(batch, sh.batch_specs(
+                batch, mesh, ("data",)), mesh)
+            key = f"baseline/{name}/{kind}"
+            if rank == 0:
+                out.update({f"{key}/param/{p}": v.numpy()
+                            for p, v in leaf_paths(params)})
+                out.update({f"{key}/batch/{k}": v.numpy()
+                            for k, v in batch.items()})
+            if kind == "prefill":
+                want = make_prefill_step(cfg, opts)(params, batch)
+                with sh.use_mesh(mesh):
+                    got = make_prefill_step(cfg, opts)(
+                        sh.distribute_tree(params, pspecs, mesh), dbatch)
+                out[f"{key}/logits"] = got.full_tensor().numpy()
+                out[f"{key}/want_logits"] = want.numpy()
+                continue
+            state = opt.init(params)
+            _, _, want = make_train_step(cfg, opts)(params, state, batch)
+            step = make_train_step(cfg, opts, grad_specs=pspecs)
+            with sh.use_mesh(mesh):
+                _, _, got = step(sh.distribute_tree(params, pspecs, mesh),
+                                 sh.distribute_tree(
+                                     state, opt.state_specs(pspecs), mesh),
+                                 dbatch)
+            out.update({f"{key}/{w}{k}": m[k].numpy()
+                        for w, m in (("", got), ("want_", want))
+                        for k in ("loss", "grad_norm")})
+    return out
+
+
 #: the ``serve_decode`` job's configs (smoke, with their overrides): the
 #: MoE model, whose FFN takes ``moe_impl="gather"`` in decode (its
 #: combine on DTensors); the enc-dec audio model with 3 heads, which
@@ -753,7 +834,8 @@ PORT_JOBS = {"ring": port_ring, "ring_grad": port_ring_grad, "ep": port_ep,
              "attention_rkv": port_attention_replicated_kv,
              "decode": port_decode,
              "fsdp_step": port_fsdp_step, "tp_step": port_tp_step,
-             "uneven": port_uneven, "serve_decode": port_serve_decode}
+             "uneven": port_uneven, "serve_decode": port_serve_decode,
+             "baseline": port_baseline}
 
 
 def rank_main(jobs, rank, world, store, out_path):
