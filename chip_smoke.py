@@ -109,8 +109,9 @@ Around that it
 * the dry run: the ring attention's backward on one NCCL rank against
   ``flash_torch``'s, the roofline held to the train phase's measured
   step, and each of ``DRYRUN_CELLS`` traced at full width on 256 or 512
-  fake ranks (in the default mapping or the paper-faithful
-  ``--baseline``) in a child process, gated on its three roofline counts
+  fake ranks (in the default mapping, the paper-faithful
+  ``--baseline`` or ``--mapping fsdp_cp``) in a child process, gated on
+  its three roofline counts
   > 0 and, where ``DRYRUN_REFERENCE_FLOPS`` and ``DRYRUN_REFERENCE_COLL``
   have the reference's counts of the same cell, mesh and mapping, on its
   collective bytes a device at most
@@ -1803,13 +1804,15 @@ def phase_loop_check(port, measured: float) -> dict:
             port.H100_CLUSTER, dtype=torch.bfloat16, tf32=False),
         "one_read": one_read_provider(port),
         "analytical": port.HopperAnalyticalProvider(port.H100_CLUSTER)}
-    pred, seconds = {}, {}
+    pred, seconds, sims = {}, {}, {}
     for name, provider in providers.items():
         t0 = time.perf_counter()
-        pred[name] = port.DistSim(
+        sims[name] = port.DistSim(
             cfg, port.Strategy(), global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-            provider=provider).simulate().batch_time
+            provider=provider)
+        pred[name] = sims[name].simulate().batch_time
         seconds[name] = time.perf_counter() - t0
+    wrappers = deprecated_wrappers_check(sims["measured"])
     ratio = {k: v / measured for k, v in pred.items()}
     (stage,) = build_stage_events(cfg, port.Strategy(), TRAIN_BATCH,
                                   TRAIN_SEQ,
@@ -1848,7 +1851,56 @@ def phase_loop_check(port, measured: float) -> dict:
                                  "once by sum(dtype=float32), no silu "
                                  "(ungated)",
             "per_event_ms": per_event_ms,
-            "simulate_seconds": seconds, "events": events}
+            "simulate_seconds": seconds, "events": events,
+            "deprecated_wrappers": wrappers}
+
+
+def deprecated_wrappers_check(sim) -> dict:
+    """One call of each of ``DistSim``'s five deprecated wrappers on the
+    loop check's measured-provider sim, each gated on its
+    ``DeprecationWarning`` and on its batch times bit-identical to
+    ``simulate()``'s (the replays' to ``simulate(seeds=...)``'s, the
+    sequential ``predict_and_replay`` to ``engine().run(seed=...)``)."""
+    import warnings
+    seeds = (0, 1)
+    pred = sim.simulate()
+    reps = sim.simulate(seeds=seeds)
+    calls = {
+        "predict": (lambda: [sim.predict().batch_time],
+                    [pred.batch_time]),
+        "replay": (lambda: [sim.replay(seed=1).batch_time],
+                   [sim.simulate(seeds=1).batch_time]),
+        "predict_batched": (lambda: list(sim.predict_batched().batch_times),
+                            list(pred.batch_times)),
+        "replay_batched": (lambda: list(sim.replay_batched(seeds)
+                                        .batch_times),
+                           list(reps.batch_times)),
+        "predict_and_replay": (
+            lambda: [r.batch_time for p, rs in [sim.predict_and_replay(
+                seeds)] for r in [p, *rs]],
+            [pred.batch_time, *reps.batch_times]),
+        "predict_and_replay(batched=False)": (
+            lambda: [r.batch_time for p, rs in [sim.predict_and_replay(
+                seeds, batched=False)] for r in [p, *rs]],
+            [pred.batch_time] + [sim.engine().run(
+                jitter_sigma=0.025, seed=s).batch_time for s in seeds])}
+    out = {}
+    for name, (call, want) in calls.items():
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            got = call()
+        warned = [str(w.message) for w in rec
+                  if issubclass(w.category, DeprecationWarning)]
+        check(len(warned) == 1 and "is deprecated" in warned[0],
+              f"DistSim.{name}: warnings {warned}")
+        check([np.float64(x).tobytes() for x in got]
+              == [np.float64(x).tobytes() for x in want],
+              f"DistSim.{name}: {got} != {want}")
+        out[name] = {"batch_times": [float(x) for x in got],
+                     "warning": warned[0], "bit_identical": True}
+    log(f"loop_check: the five deprecated wrappers bit-identical to "
+        f"simulate() ({len(out)} calls)")
+    return out
 
 
 def phase_train_check() -> dict:
@@ -2975,28 +3027,40 @@ def phase_parallel(mesh, ep_row) -> dict:
 # block's output and its input's gradient all-reduced), qwen3_moe's
 # train step (its tokens gathered into each rank's experts' slots by
 # hand), and qwen2's train step on the multi-pod mesh (the batch over
-# ("pod", "data")). (arch, shape, mesh, layers, baseline).
-DRYRUN_CELLS = (("h2o_danube_1_8b", "train_4k", "single", None, False),
-                ("h2o_danube_1_8b", "train_4k", "multi", None, False),
-                ("qwen3_moe_30b_a3b", "prefill_32k", "single", 4, False),
-                ("mistral_large_123b", "decode_32k", "single", None, False),
-                ("qwen3_moe_30b_a3b", "decode_32k", "single", 2, False),
-                ("whisper_tiny", "decode_32k", "single", None, False),
-                ("mamba2_2_7b", "train_4k", "single", 16, False),
-                ("t5_large", "train_4k", "single", None, False),
-                ("qwen2_1_5b", "train_4k", "single", 1, False),
-                ("gpt2_345m", "train_4k", "single", 1, False),
-                ("phi3_medium_14b", "prefill_32k", "single", 1, False),
-                ("mamba2_2_7b", "decode_32k", "single", 1, False),
-                ("jamba_v0_1_52b", "decode_32k", "single", 8, False),
-                ("jamba_v0_1_52b", "prefill_32k", "single", 8, False),
-                ("h2o_danube_1_8b", "prefill_32k", "single", 1, True),
-                ("t5_large", "train_4k", "single", 1, True),
-                ("qwen3_moe_30b_a3b", "train_4k", "single", 1, True),
-                ("qwen2_1_5b", "train_4k", "multi", 1, False))
+# ("pod", "data")). The last three (at one layer) hold `--mapping
+# fsdp_cp` (no tensor parallelism, the sequence over `model`, ZeRO-3
+# over both axes; traced on the last `model` rank, whose causal queries
+# see every key): qwen3_moe's train step (every expert's queue formed
+# whole, the capacity slots split over the ranks), qwen2_vl's (its
+# stream split along the sequence from the patch embeddings on) and
+# h2o's (the flash scans, which the reference runs whole on every rank
+# of `model`). (arch, shape, mesh, layers, mapping): the mapping is
+# "tp_sp" (the default), "baseline" (`--baseline`) or "fsdp_cp".
+DRYRUN_CELLS = (("h2o_danube_1_8b", "train_4k", "single", None, "tp_sp"),
+                ("h2o_danube_1_8b", "train_4k", "multi", None, "tp_sp"),
+                ("qwen3_moe_30b_a3b", "prefill_32k", "single", 4, "tp_sp"),
+                ("mistral_large_123b", "decode_32k", "single", None,
+                 "tp_sp"),
+                ("qwen3_moe_30b_a3b", "decode_32k", "single", 2, "tp_sp"),
+                ("whisper_tiny", "decode_32k", "single", None, "tp_sp"),
+                ("mamba2_2_7b", "train_4k", "single", 16, "tp_sp"),
+                ("t5_large", "train_4k", "single", None, "tp_sp"),
+                ("qwen2_1_5b", "train_4k", "single", 1, "tp_sp"),
+                ("gpt2_345m", "train_4k", "single", 1, "tp_sp"),
+                ("phi3_medium_14b", "prefill_32k", "single", 1, "tp_sp"),
+                ("mamba2_2_7b", "decode_32k", "single", 1, "tp_sp"),
+                ("jamba_v0_1_52b", "decode_32k", "single", 8, "tp_sp"),
+                ("jamba_v0_1_52b", "prefill_32k", "single", 8, "tp_sp"),
+                ("h2o_danube_1_8b", "prefill_32k", "single", 1, "baseline"),
+                ("t5_large", "train_4k", "single", 1, "baseline"),
+                ("qwen3_moe_30b_a3b", "train_4k", "single", 1, "baseline"),
+                ("qwen2_1_5b", "train_4k", "multi", 1, "tp_sp"),
+                ("qwen3_moe_30b_a3b", "train_4k", "single", 1, "fsdp_cp"),
+                ("qwen2_vl_72b", "train_4k", "single", 1, "fsdp_cp"),
+                ("h2o_danube_1_8b", "train_4k", "single", 1, "fsdp_cp"))
 DRYRUN_TIMEOUT = 600
 #: per-device FLOPs and collective bytes of cells of DRYRUN_CELLS, by
-#: (arch, shape, mesh, baseline), as the reference's own dry run counts
+#: (arch, shape, mesh, mapping), as the reference's own dry run counts
 #: them (``repro.launch.dryrun``, XLA's ``hlo_stats``, on the cell's mesh
 #: and mapping at the same depth), made by
 #:   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/test_torch_dryrun_ref.py \
@@ -3006,59 +3070,77 @@ DRYRUN_TIMEOUT = 600
 #:     jamba_v0_1_52b:decode_32k:8 jamba_v0_1_52b:prefill_32k:8 \
 #:     h2o_danube_1_8b:prefill_32k:1:baseline t5_large:train_4k:1:baseline \
 #:     qwen3_moe_30b_a3b:train_4k:1:baseline qwen2_1_5b:train_4k:1:multi
+#: and, for the ``fsdp_cp`` cells, by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/test_torch_dryrun_ref.py \
+#:     --production ref.json qwen3_moe_30b_a3b:train_4k:1:fsdp_cp \
+#:     qwen2_vl_72b:train_4k:1:fsdp_cp h2o_danube_1_8b:train_4k:1:fsdp_cp
 #: (``flops`` and ``total``; t5's baseline bytes are ``every_operand``,
 #: every operand of XLA's combined all-reduces counted, as
 #: ``tests/test_torch_dryrun_held.py::COMBINED`` holds the cell);
-#: ``tests/test_torch_dryrun_{held,baseline}_*.py`` hold every cell at
-#: one layer to the live reference on the CPU. Held here on the card's
-#: torch, whose DTensor chooses other strategies: the collective bytes
-#: at most DRYRUN_TOL over; the FLOPs within DRYRUN_TOL where no block
-#: pair is skipped (decode), at most DRYRUN_TOL over where the port's
-#: blockwise attention skips pairs (train, prefill) or the reference
-#: does work the port does not (gpt2's head on every chunk of each
-#: rank's rows, jamba's dense down product whole on every rank).
+#: ``tests/test_torch_dryrun_{held,baseline,fsdp_cp}_*.py`` hold every
+#: cell at one layer to the live reference on the CPU. Held here on the
+#: card's torch, whose DTensor chooses other strategies: the collective
+#: bytes at most DRYRUN_TOL over; the FLOPs within DRYRUN_TOL where no
+#: block pair is skipped (decode), at most DRYRUN_TOL over where the
+#: port's blockwise attention skips pairs (train, prefill) or the
+#: reference does work the port does not (gpt2's head on every chunk of
+#: each rank's rows, jamba's dense down product whole on every rank;
+#: under ``fsdp_cp`` the head's rows, the flash scans on every rank of
+#: ``model`` and the MoE's router, ``held.fsdp_cp_causes``).
 DRYRUN_REFERENCE_FLOPS = {
-    ("qwen3_moe_30b_a3b", "decode_32k", "single", False): 3022782464,
-    ("whisper_tiny", "decode_32k", "single", False): 477911040,
-    ("qwen2_1_5b", "train_4k", "single", False): 7774427676672,
-    ("gpt2_345m", "train_4k", "single", False): 10805265301504,
-    ("phi3_medium_14b", "prefill_32k", "single", False): 10299331575808,
-    ("mamba2_2_7b", "decode_32k", "single", False): 2100327424,
-    ("jamba_v0_1_52b", "decode_32k", "single", False): 53523003392,
-    ("jamba_v0_1_52b", "prefill_32k", "single", False): 59755041128448,
-    ("h2o_danube_1_8b", "prefill_32k", "single", True): 2614561341440,
-    ("t5_large", "train_4k", "single", True): 1057098825728,
-    ("qwen3_moe_30b_a3b", "train_4k", "single", True): 33451352784896,
-    ("qwen2_1_5b", "train_4k", "multi", False): 3887213838336}
+    ("qwen3_moe_30b_a3b", "decode_32k", "single", "tp_sp"): 3022782464,
+    ("whisper_tiny", "decode_32k", "single", "tp_sp"): 477911040,
+    ("qwen2_1_5b", "train_4k", "single", "tp_sp"): 7774427676672,
+    ("gpt2_345m", "train_4k", "single", "tp_sp"): 10805265301504,
+    ("phi3_medium_14b", "prefill_32k", "single", "tp_sp"): 10299331575808,
+    ("mamba2_2_7b", "decode_32k", "single", "tp_sp"): 2100327424,
+    ("jamba_v0_1_52b", "decode_32k", "single", "tp_sp"): 53523003392,
+    ("jamba_v0_1_52b", "prefill_32k", "single", "tp_sp"): 59755041128448,
+    ("h2o_danube_1_8b", "prefill_32k", "single", "baseline"): 2614561341440,
+    ("t5_large", "train_4k", "single", "baseline"): 1057098825728,
+    ("qwen3_moe_30b_a3b", "train_4k", "single", "baseline"): 33451352784896,
+    ("qwen2_1_5b", "train_4k", "multi", "tp_sp"): 3887213838336,
+    ("qwen3_moe_30b_a3b", "train_4k", "single", "fsdp_cp"): 66194035965952,
+    ("qwen2_vl_72b", "train_4k", "single", "fsdp_cp"): 69483980914688,
+    ("h2o_danube_1_8b", "train_4k", "single", "fsdp_cp"): 22017076101120}
 DRYRUN_REFERENCE_COLL = {
-    ("qwen3_moe_30b_a3b", "decode_32k", "single", False): 4884640.0,
-    ("whisper_tiny", "decode_32k", "single", False): 4981152.0,
-    ("qwen2_1_5b", "train_4k", "single", False): 5474411007.25,
-    ("gpt2_345m", "train_4k", "single", False): 2986530800.25,
-    ("phi3_medium_14b", "prefill_32k", "single", False): 4865392640.0,
-    ("mamba2_2_7b", "decode_32k", "single", False): 121020.0,
-    ("jamba_v0_1_52b", "decode_32k", "single", False): 127182752.0,
-    ("jamba_v0_1_52b", "prefill_32k", "single", False): 25214934592.0,
-    ("h2o_danube_1_8b", "prefill_32k", "single", True): 1924136960.0,
-    ("t5_large", "train_4k", "single", True): 2774703562.5,
-    ("qwen3_moe_30b_a3b", "train_4k", "single", True): 14837973119.5,
-    ("qwen2_1_5b", "train_4k", "multi", False): 3636212641.5}
+    ("qwen3_moe_30b_a3b", "decode_32k", "single", "tp_sp"): 4884640.0,
+    ("whisper_tiny", "decode_32k", "single", "tp_sp"): 4981152.0,
+    ("qwen2_1_5b", "train_4k", "single", "tp_sp"): 5474411007.25,
+    ("gpt2_345m", "train_4k", "single", "tp_sp"): 2986530800.25,
+    ("phi3_medium_14b", "prefill_32k", "single", "tp_sp"): 4865392640.0,
+    ("mamba2_2_7b", "decode_32k", "single", "tp_sp"): 121020.0,
+    ("jamba_v0_1_52b", "decode_32k", "single", "tp_sp"): 127182752.0,
+    ("jamba_v0_1_52b", "prefill_32k", "single", "tp_sp"): 25214934592.0,
+    ("h2o_danube_1_8b", "prefill_32k", "single", "baseline"): 1924136960.0,
+    ("t5_large", "train_4k", "single", "baseline"): 2774703562.5,
+    ("qwen3_moe_30b_a3b", "train_4k", "single", "baseline"): 14837973119.5,
+    ("qwen2_1_5b", "train_4k", "multi", "tp_sp"): 3636212641.5,
+    ("qwen3_moe_30b_a3b", "train_4k", "single", "fsdp_cp"):
+        92941197391.90625,
+    ("qwen2_vl_72b", "train_4k", "single", "fsdp_cp"): 162948939259.85938,
+    ("h2o_danube_1_8b", "train_4k", "single", "fsdp_cp"):
+        34352901307.859375}
 #: per-device FLOPs as run (the causal skip in) of the cells of
 #: DRYRUN_REFERENCE_FLOPS whose bar above is one-sided, as the port's own
-#: dry run traces them on the CPU (torch 2.13.0+cpu), made by
+#: dry run traces them on the CPU (torch 2.13.0+cpu; the ``fsdp_cp``
+#: cells on the last ``model`` rank, as the dry run traces them), made by
 #:   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch <arch> \
 #:     --shape <shape> --multi-pod <mesh> --layers <layers> --device cpu \
-#:     [--baseline]
+#:     [--baseline | --mapping fsdp_cp]
 #: (``hlo_flops/dev``): held within DRYRUN_TOL, two-sided, on the card.
 DRYRUN_PORT_FLOPS = {
-    ("qwen2_1_5b", "train_4k", "single", False): 7.542e12,
-    ("gpt2_345m", "train_4k", "single", False): 1.836e12,
-    ("phi3_medium_14b", "prefill_32k", "single", False): 8.702e12,
-    ("jamba_v0_1_52b", "prefill_32k", "single", False): 2.983e13,
-    ("h2o_danube_1_8b", "prefill_32k", "single", True): 1.441e12,
-    ("t5_large", "train_4k", "single", True): 1.057e12,
-    ("qwen3_moe_30b_a3b", "train_4k", "single", True): 3.322e13,
-    ("qwen2_1_5b", "train_4k", "multi", False): 3.771e12}
+    ("qwen2_1_5b", "train_4k", "single", "tp_sp"): 7.542e12,
+    ("gpt2_345m", "train_4k", "single", "tp_sp"): 1.836e12,
+    ("phi3_medium_14b", "prefill_32k", "single", "tp_sp"): 8.702e12,
+    ("jamba_v0_1_52b", "prefill_32k", "single", "tp_sp"): 2.983e13,
+    ("h2o_danube_1_8b", "prefill_32k", "single", "baseline"): 1.441e12,
+    ("t5_large", "train_4k", "single", "baseline"): 1.057e12,
+    ("qwen3_moe_30b_a3b", "train_4k", "single", "baseline"): 3.322e13,
+    ("qwen2_1_5b", "train_4k", "multi", "tp_sp"): 3.771e12,
+    ("qwen3_moe_30b_a3b", "train_4k", "single", "fsdp_cp"): 1.013e13,
+    ("qwen2_vl_72b", "train_4k", "single", "fsdp_cp"): 5.986e13,
+    ("h2o_danube_1_8b", "train_4k", "single", "fsdp_cp"): 4.918e12}
 DRYRUN_TOL = 0.10
 # the roofline held to the train phase's measured step (its model,
 # batch and options): traced FLOPs == FlopCounterMode's, the predicted
@@ -3080,15 +3162,15 @@ def start_dryrun_cells(out_dir: str) -> list:
         + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     started = []
     for i, cell in enumerate(DRYRUN_CELLS):
-        arch, shape, pods, layers, baseline = cell
+        arch, shape, pods, layers, mapping = cell
         out = os.path.join(out_dir, f"cell{i}.csv")
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--multi-pod", pods, "--out", out,
                "--device", "cuda"]
         if layers:
             cmd += ["--layers", str(layers)]
-        if baseline:
-            cmd.append("--baseline")
+        cmd += (["--baseline"] if mapping == "baseline"
+                else ["--mapping", mapping])
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True, env=env,
                                 cwd=HERE)
@@ -3101,9 +3183,10 @@ def finish_dryrun_cells(started) -> list:
     rows = []
     try:
         for cell, proc, out, t0 in started:
-            arch, shape, pods, layers, baseline = cell
-            key = (arch, shape, pods, baseline)
-            tag = f"{arch}/{shape}/{pods}" + ("/baseline" if baseline else "")
+            arch, shape, pods, layers, mapping = cell
+            key = (arch, shape, pods, mapping)
+            tag = f"{arch}/{shape}/{pods}" + (
+                f"/{mapping}" if mapping != "tp_sp" else "")
             stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
             wall = time.perf_counter() - t0
             check(proc.returncode == 0,
@@ -3141,7 +3224,8 @@ def finish_dryrun_cells(started) -> list:
                              stdout)
             rows.append({"arch": arch, "shape": shape,
                          "mesh": fields["mesh"], "chips": int(fields["chips"]),
-                         "baseline": baseline,
+                         "baseline": mapping == "baseline",
+                         "mapping": mapping,
                          "layers": layers or port_config(arch).n_layers,
                          "layers_full": port_config(arch).n_layers,
                          "row": row, "t_compute_ms": terms[0],

@@ -16,6 +16,7 @@ batches of strategies on the card through the mega-batch kernel.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -141,6 +142,12 @@ class SimBatch:
         return [self.result(i) for i in range(len(self))]
 
 
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(
+        f"DistSim.{old}() is deprecated; use DistSim.{new}",
+        DeprecationWarning, stacklevel=3)
+
+
 class DistSim:
     def __init__(self, cfg: ArchConfig, strategy: Strategy,
                  global_batch: int, seq: int,
@@ -216,6 +223,66 @@ class DistSim:
             list(seeds), jitter_sigma=jitter_sigma,
             straggler_sigma=straggler_sigma, clock_sigma=clock_sigma)
         return SimBatch(batch, self.global_batch, self.seq, "replay", sc)
+
+    # ---- deprecated 5-method surface (thin delegating wrappers) ----
+    def predict(self, positions: Optional[List[Stage]] = None) -> SimResult:
+        """Deprecated: use ``simulate(positions=...).result()``."""
+        _deprecated("predict", "simulate(positions=...).result()")
+        return self.simulate(positions=positions).result()
+
+    def replay(self, seed: int = 0, jitter_sigma: float = 0.025,
+               straggler_sigma: float = 0.0,
+               clock_sigma: float = 0.0,
+               positions: Optional[List[Stage]] = None) -> SimResult:
+        """Deprecated: use ``simulate(seeds=seed, ...).result()``."""
+        _deprecated("replay", "simulate(seeds=..., ...).result()")
+        return self.simulate(
+            seeds=seed, jitter_sigma=jitter_sigma,
+            straggler_sigma=straggler_sigma, clock_sigma=clock_sigma,
+            positions=positions).result()
+
+    def predict_batched(self, positions: Optional[List[Stage]] = None
+                        ) -> TimelineBatch:
+        """Deprecated: use ``simulate(positions=...).batch``."""
+        _deprecated("predict_batched", "simulate(positions=...).batch")
+        return self.simulate(positions=positions).batch
+
+    def replay_batched(self, seeds, jitter_sigma: float = 0.025,
+                       straggler_sigma: float = 0.0,
+                       clock_sigma: float = 0.0,
+                       positions: Optional[List[Stage]] = None
+                       ) -> TimelineBatch:
+        """Deprecated: use ``simulate(seeds=..., ...).batch``."""
+        _deprecated("replay_batched", "simulate(seeds=..., ...).batch")
+        return self.simulate(
+            seeds=list(seeds), jitter_sigma=jitter_sigma,
+            straggler_sigma=straggler_sigma, clock_sigma=clock_sigma,
+            positions=positions).batch
+
+    def predict_and_replay(self, seeds=(0,), jitter_sigma: float = 0.025,
+                           straggler_sigma: float = 0.0,
+                           clock_sigma: float = 0.0, batched: bool = True):
+        """Deprecated: call ``simulate()`` twice (predict lane + replay
+        lanes); for the sequential differential baseline drive
+        ``engine().run(seed=...)`` directly."""
+        _deprecated("predict_and_replay",
+                    "simulate() / simulate(seeds=...)")
+        engine = self.engine()
+        pred = _to_result(engine.run(), self.global_batch, self.seq)
+        if batched:
+            batch = engine.run_batched(list(seeds),
+                                       jitter_sigma=jitter_sigma,
+                                       straggler_sigma=straggler_sigma,
+                                       clock_sigma=clock_sigma)
+            replays = [_to_result(batch.timeline(i), self.global_batch,
+                                  self.seq) for i in range(len(batch))]
+        else:
+            replays = [_to_result(engine.run(
+                jitter_sigma=jitter_sigma,
+                straggler_sigma=straggler_sigma,
+                clock_sigma=clock_sigma, seed=s), self.global_batch,
+                self.seq) for s in seeds]
+        return pred, replays
 
     # ---- store-served query front-end ----
     @classmethod

@@ -18,12 +18,13 @@ private module ``torch.testing._internal.distributed.fake_pg``), the
 parameters, optimizer state, batch and cache are fake tensors placed as
 DTensors, and the step runs once under
 :class:`~repro_torch.core.roofline.TraceCounter`, which counts FLOPs,
-eager bytes and collectives on rank 0's local shards. The peak bytes per
-device come from ``torch.distributed._tools.mem_tracker.MemTracker``
+eager bytes and collectives on one rank's local shards. The peak bytes
+per device come from ``torch.distributed._tools.mem_tracker.MemTracker``
 over the same call (the counterpart of ``memory_analysis()``'s temp +
-argument + output). The counts are rank 0's: where ranks do unequal
-work (a causal sequence split over ``model`` under ``--mapping
-fsdp_cp``), rank 0's is the least. The dry run needs no card;
+argument + output). The counts are those of the rank that bounds the
+step (:func:`traced_rank`): rank 0, except under ``--mapping fsdp_cp``,
+whose causal sequence split over ``model`` leaves rank 0 the least work
+and the last ``model`` coordinate the most. The dry run needs no card;
 ``--device`` (default ``cuda``, which must exist) is the device the
 fake tensors name.
 """
@@ -116,17 +117,49 @@ def model_options(cfg, shape, mesh, baseline: bool = False,
 
 
 @contextlib.contextmanager
-def fake_world(n: int):
-    """A fake process group of ``n`` ranks, this process rank 0, for the
-    block (PyTorch's ``fake`` backend: collectives complete at once and
-    move nothing)."""
+def fake_world(n: int, rank: int = 0):
+    """A fake process group of ``n`` ranks, this process ``rank``, for
+    the block (PyTorch's ``fake`` backend: collectives complete at once
+    and move nothing)."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    _forget_meshes()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=n)
     try:
         yield
     finally:
         dist.destroy_process_group()
+
+
+def _forget_meshes():
+    """Clear DTensor's caches of sharding plans: they hold the meshes of
+    an earlier world, which compare equal to a new world's meshes of the
+    same shape, and a cached plan's collectives would run on the old
+    mesh's process groups — by name, which a world traced on another
+    rank gives to other groups."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for cache in (getattr(_redistribute, "_gen_transform_infos", None),
+                  getattr(prop, "propagate_op_sharding", None),
+                  getattr(prop, "_propagate_tensor_meta_cached", None)):
+        getattr(cache, "cache_clear", lambda: None)()
+    getattr(_redistribute, "clear_redistribute_planner_cache",
+            lambda: None)()
+    # the C++ dispatch's own cache of the same plans (torch >= 2.12)
+    getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+            lambda: None)()
+
+
+def traced_rank(shape, mapping: str) -> int:
+    """The rank a cell is traced on: under ``--mapping fsdp_cp`` a
+    train cell's causal attention over a sequence split along ``model``
+    gives each rank's queries the keys before them, so the last
+    ``model`` coordinate does the most work and bounds the step — rank
+    15 on both production meshes (``model``, 16 ranks, the innermost
+    axis; the other coordinates 0); elsewhere every rank does the same
+    work and rank 0 is traced."""
+    return 15 if mapping == "fsdp_cp" and shape.kind == "train" else 0
 
 
 def fsdp_axes(cfg, shape, mesh, baseline: bool, mapping: str):
@@ -230,7 +263,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     shape = SHAPES[shape_name]
     mesh_name = "2x16x16" if multi_pod else "16x16"
     n_chips = 512 if multi_pod else 256
-    with fake_world(n_chips):
+    with fake_world(n_chips, traced_rank(shape, mapping)):
         mesh = make_production_mesh(multi_pod=multi_pod, device=device)
         opts = model_options(cfg, shape, mesh, baseline, mapping)
         fsdp, model_axis = fsdp_axes(cfg, shape, mesh, baseline, mapping)

@@ -29,7 +29,7 @@ from repro_torch.models.lm import (EMPTY_POS, _attn_block,
                                    cross_entropy, _ffn_block, _ffn_shapes,
                                    _head, _init_tree, _kv_cache,
                                    _merge_heads, _split_heads, embed_lookup,
-                                   embed_tokens,
+                                   embed_tokens, start_stream,
                                    layer_params, run_layer, unstack_layers)
 
 
@@ -114,7 +114,7 @@ def decode_train(cfg: ArchConfig, params, enc_out: torch.Tensor,
 
 def _encoder_input(cfg, params, batch, opts):
     if cfg.audio_stub:
-        return batch["frame_embeds"].to(opts.dtype)
+        return start_stream(batch["frame_embeds"].to(opts.dtype), opts)
     return embed_tokens(params, batch["tokens_enc"], opts).to(opts.dtype)
 
 

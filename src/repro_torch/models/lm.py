@@ -290,6 +290,22 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
     return L.constrain(embed_lookup(table, tokens, pending=True), opts)
 
 
+def start_stream(x: torch.Tensor, opts: ModelOptions) -> torch.Tensor:
+    """A residual stream that does not start at :func:`embed_tokens`
+    (stub modality embeddings, placed by the batch's spec) moved into
+    ``opts.act_spec``'s placement where attention splits the sequence
+    (context parallelism, ``--mapping fsdp_cp``): left whole there, the
+    first layer's products, whose weights are whole, would run on every
+    rank's whole sequence. Under tensor parallelism the first products
+    gather the sequence anyway (Megatron-SP's gather), and the stream
+    starts as the batch places it. Plain tensors as they are."""
+    spec = opts.qkv_spec
+    if (opts.act_spec is None or spec is None or len(spec) < 2
+            or spec[1] is None or not is_dtensor(x)):
+        return x
+    return L.constrain(x, opts)
+
+
 # --------------------------------------------------------------------------
 # blocks (forward)
 # --------------------------------------------------------------------------
@@ -924,6 +940,8 @@ def embed_inputs(cfg: ArchConfig, params: Params,
         parts.append(embed_tokens(params, batch["tokens"], opts) if not parts
                      else embed_lookup(params["embed"], batch["tokens"]))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    if len(parts) > 1 or "tokens" not in batch:
+        x = start_stream(x, opts)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     return x, positions

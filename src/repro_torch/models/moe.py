@@ -135,7 +135,11 @@ def _experts(xe, params):
 
 def moe_gather(x: torch.Tensor, params, mcfg: MoEConfig):
     """x: (B,S,d) → (B,S,d), probs. Static-shape gather MoE; the
-    combine adds each token's rows in ascending expert order."""
+    combine adds each token's rows in ascending expert order. A DTensor
+    ``x`` whose sequence is split, with experts that no mesh dimension
+    splits, goes through :func:`_gather_on_slots`."""
+    if _on_slots(x, params["w_gate"]):
+        return _gather_on_slots(x, params, mcfg)
     b, s, d = x.shape
     t = b * s
     x2d = x.reshape(t, d)
@@ -214,6 +218,124 @@ def _dispatch_on_shards(x2d, sel, chosen, w_gate):
     return settle(xe), settle(gatew)
 
 
+def _on_slots(x: torch.Tensor, w_gate: torch.Tensor) -> bool:
+    """Whether :func:`moe_gather` takes :func:`_gather_on_slots`: ``x`` a
+    DTensor whose sequence (dimension 1) a mesh dimension of more than
+    one rank splits, as context parallelism places it (``--mapping
+    fsdp_cp``), and experts that no mesh dimension splits. Its tokens
+    then flatten into no single split of (B·S, d), which DTensor
+    cannot place."""
+    if not is_dtensor(x):
+        return False
+    mesh = x.device_mesh
+    return (any(p.is_shard(1) and mesh.size(i) > 1
+                for i, p in enumerate(x.placements))
+            and not (is_dtensor(w_gate)
+                     and any(p.is_shard(0) for p in w_gate.placements)))
+
+
+def _gather_on_slots(x, params, mcfg: MoEConfig):
+    """:func:`moe_gather` over a DTensor ``x`` (B, S, d) whose batch and
+    sequence are split over mesh dimensions, with the experts whole on
+    every rank (ZeRO-3's gathered weights), placed by hand through
+    ``local_map`` as the reference's XLA places it under ``--mapping
+    fsdp_cp``: each rank routes its own tokens; the gate table (T, E)
+    and the tokens are all-gathered, so that every rank forms every
+    expert's whole queue (the plain queues, bit for bit); and the
+    capacity slots, not the experts, are split over the tokens' mesh
+    dimensions, ``C / n`` of every expert's slots a rank (the
+    reference's XLA splits the experts' products along d instead, for
+    the same FLOPs). Each rank runs every expert on its slots, then adds,
+    for every token, the rows of its slots in ascending expert order: a
+    pending sum over the ranks, reduce-scattered back to the tokens'
+    placement (it runs in another order than the plain combine's where
+    a token's rows lie on several ranks). Backward, the tokens' and the
+    gates' gradients are reduce-scattered to their owners, and the
+    router's and the experts' weights' gradients are pending sums over
+    the tokens' mesh dimensions. The capacity is padded to a multiple of
+    the ranks with slots that hold no token. Returns y, placed as
+    ``x``, and the router's probs (B, S, E), placed as ``x``'s rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    t, e = b * s, mcfg.n_experts
+    cap = capacity(t, mcfg)
+    tok = [p if p.is_shard() and p.dim < 2 and mesh.size(i) > 1
+           else Replicate() for i, p in enumerate(x.placements)]
+    split = [i for i, p in enumerate(tok) if p.is_shard()]
+    n = math.prod(mesh.size(i) for i in split)
+    cs = -(-cap // n)                          # slots of an expert a rank
+    rep = [Replicate()] * mesh.ndim
+    part = [Partial() if i in split else Replicate()
+            for i in range(mesh.ndim)]
+    slots = [Shard(1) if i in split else Replicate()
+             for i in range(mesh.ndim)]
+
+    def first_slot():
+        r = 0
+        for i in split:                        # this rank's slots, in order
+            r = r * mesh.size(i) + mesh.get_local_rank(i)
+        return r * cs
+
+    def route(x, w):
+        bl, sl, _ = x.shape
+        probs, topi, topw = router_probs(x.reshape(bl * sl, d), w, mcfg)
+        sel = torch.full((bl * sl, e), -torch.inf, dtype=torch.float32,
+                         device=x.device).scatter(1, topi, topw)
+        return probs.reshape(bl, sl, e), sel.reshape(bl, sl, e)
+
+    probs, sel = local_map(
+        route, out_placements=(tok, tok), in_placements=(tok, rep),
+        in_grad_placements=(tok, part), device_mesh=mesh)(
+            place_on(x, mesh, tok), place_on(params["router"], mesh, rep))
+
+    def dispatch_slots(x, sel):
+        sel = sel.reshape(t, e)
+        # routing is a discrete decision: no gradient through the sort
+        order = torch.argsort(-sel.detach(), dim=0, stable=True)   # (T,E)
+        c0 = first_slot()
+        ids = order[c0:min(c0 + cs, cap)].T                        # (E,c)
+        xe = x.reshape(t, d)[ids.reshape(-1)].reshape(e, -1, d)
+        gatew = torch.gather(sel, 0, ids.T).T
+        if ids.shape[1] < cs:                  # the padding's empty slots
+            pad = cs - ids.shape[1]
+            xe = F.pad(xe, (0, 0, 0, pad))
+            gatew = F.pad(gatew, (0, pad), value=-torch.inf)
+        # each token's chosen experts, ascending: its finite gates
+        experts = torch.argsort(~torch.isfinite(sel.detach()), dim=1,
+                                stable=True)[:, :mcfg.top_k]
+        return xe, gatew, _queue_rank(order), experts
+
+    xe, gatew, rank, experts = local_map(
+        dispatch_slots, out_placements=(slots, slots, rep, rep),
+        in_placements=(rep, rep), in_grad_placements=(part, part),
+        device_mesh=mesh)(place_on(x, mesh, rep), place_on(sel, mesh, rep))
+
+    def run_experts(xe, gatew, w_gate, w_up, w_down):
+        live = torch.isfinite(gatew)
+        gatew = torch.where(live, gatew, 0.0)
+        y = _swiglu_experts(xe, w_gate, w_up, w_down)
+        return y * gatew[..., None].to(y.dtype)
+
+    ws = [place_on(params[k], mesh, rep) for k in ("w_gate", "w_up",
+                                                   "w_down")]
+    y = local_map(run_experts, out_placements=slots,
+                  in_placements=(slots, slots, rep, rep, rep),
+                  in_grad_placements=(slots, slots, part, part, part),
+                  device_mesh=mesh)(xe, gatew, *ws)
+
+    def combine_slots(y, rank, experts):
+        out = _combine_rows(y, rank, experts, c0=first_slot(), cap=cap)
+        return out.reshape(b, s, d)
+
+    out = local_map(combine_slots, out_placements=part,
+                    in_placements=(slots, rep, rep),
+                    in_grad_placements=(slots, rep, rep),
+                    device_mesh=mesh)(y, rank, experts)
+    return out.redistribute(mesh, tok), probs
+
+
 def _queue_rank(order: torch.Tensor) -> torch.Tensor:
     """Each token's rank in each expert's queue, (T, E): the inverse of
     the permutations ``order[:, e]``, as their argsort. It is made from
@@ -239,14 +361,20 @@ def combine(y: torch.Tensor, order: torch.Tensor,
     return _combine_rows(y, rank, experts)
 
 
-def _combine_rows(y, rank, experts, e0: int = 0):
-    """:func:`combine` of the rows y (E', C, d) of experts e0 .. e0+E'-1:
-    a token's chosen expert outside them reads the zero row too."""
-    e, cap, d = y.shape
+def _combine_rows(y, rank, experts, e0: int = 0, c0: int = 0,
+                  cap=None):
+    """:func:`combine` of the rows y (E', C', d) of experts e0 .. e0+E'-1
+    at their slots c0 .. c0+C'-1 of ``cap`` (default C'): a token's
+    chosen expert outside them reads the zero row too."""
+    e, cs, d = y.shape
     r = torch.gather(rank, 1, experts)
-    mine = (r < cap) & (experts >= e0) & (experts < e0 + e)
-    rows = torch.where(mine, (experts - e0) * cap + r, e * cap)
-    flat = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
+    mine = (r < cs) & (experts >= e0) & (experts < e0 + e)
+    if c0 or cap is not None:
+        r = r - c0
+        mine = (r >= 0) & (r < cs) & (r + c0 < cap) & (experts >= e0) & (
+            experts < e0 + e)
+    rows = torch.where(mine, (experts - e0) * cs + r, e * cs)
+    flat = torch.cat([y.reshape(e * cs, d), y.new_zeros((1, d))])
     out = torch.zeros((experts.shape[0], d), dtype=y.dtype, device=y.device)
     for j in range(rows.shape[1]):
         out = out + flat[rows[:, j]]
@@ -324,7 +452,8 @@ def moe_ffn(x, params, mcfg: MoEConfig, impl: str = "gather", opts=None):
 
 
 def _expert_load(probs: torch.Tensor) -> torch.Tensor:
-    """``probs.mean(0)``: each expert's mean gate over the tokens. On a
+    """``probs.mean(0)``: each expert's mean gate over the tokens (the
+    rows of probs (T, E), or its first two dimensions, (B, S, E)). On a
     DTensor whose tokens are split, each rank sums its rows through
     ``local_map``, a pending sum then reduced, and the backward gives
     each rank its rows' gradient, split as the rows are. Left to
@@ -333,16 +462,18 @@ def _expert_load(probs: torch.Tensor) -> torch.Tensor:
     every rank."""
     if not is_dtensor(probs):
         return probs.mean(0)
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     mesh = probs.device_mesh
-    rows = [Shard(0) if p.is_shard(0) else Replicate()
+    tokens = tuple(range(probs.ndim - 1))      # (T, E), or (B, S, E)
+    rows = [p if p.is_shard() and p.dim in tokens else Replicate()
             for p in probs.placements]
     out = [Partial() if p.is_shard() else Replicate() for p in rows]
-    fn = local_map(lambda p: p.sum(0), out_placements=out,
+    fn = local_map(lambda p: p.sum(tokens), out_placements=out,
                    in_placements=(rows,), in_grad_placements=(rows,),
                    device_mesh=mesh)
-    return settle(fn(place_on(probs, mesh, rows))) / probs.shape[0]
+    return settle(fn(place_on(probs, mesh, rows))) / math.prod(
+        probs.shape[:-1])
 
 
 #: all-to-all exchanges made by :func:`moe_ep_a2a` (two a layer), beside

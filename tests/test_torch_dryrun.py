@@ -194,6 +194,42 @@ def test_production_meshes_on_the_cpu(multi_pod):
                                        else ("data", "model"))
 
 
+@pytest.mark.parametrize("mapping,rank", [("fsdp_cp", 15), ("tp_sp", 0)])
+def test_the_dry_run_traces_the_rank_that_bounds_the_step(mapping, rank):
+    """A train cell under ``--mapping fsdp_cp`` is traced on the last
+    ``model`` coordinate, rank 15 of 16 x 16, whose queries see every
+    key before them; every other mapping on rank 0."""
+    from repro_torch.configs.base import SHAPES
+    assert D.traced_rank(SHAPES["train_4k"], mapping) == rank
+    assert D.traced_rank(SHAPES["prefill_32k"], mapping) == 0
+    with D.fake_world(256, rank):
+        mesh = make_production_mesh(device="cpu")
+        assert tuple(mesh.get_coordinate()) == (0, rank)
+
+
+def test_fsdp_cp_counts_more_work_on_the_last_model_rank(monkeypatch):
+    """The smoke qwen2 train cell on 16 x 16 under ``--mapping fsdp_cp``
+    (the sequence split over ``model``, causal attention in blocks): the
+    last ``model`` rank, which the dry run traces, runs more FLOPs than
+    rank 0 (``flash_torch`` skips fewer of its block pairs), and both
+    ranks' no-skip counts — as run plus the skipped pairs — are equal."""
+    counts = {}
+    for rank in (0, 15):
+        skipped = _skipped_pairs_flops(monkeypatch)
+        monkeypatch.setattr(D, "traced_rank", lambda *a, _r=rank: _r)
+        rep, _ = D.lower_cell("qwen2_1_5b", "train_4k", False,
+                              mapping="fsdp_cp", device="cpu", smoke=True,
+                              layers=1)
+        counts[rank] = (rep.hlo_flops, sum(skipped))
+    assert counts[15][0] > counts[0][0] and counts[0][1] > counts[15][1]
+    assert sum(counts[15]) == sum(counts[0])
+    monkeypatch.undo()
+    rep, _ = D.lower_cell("qwen2_1_5b", "train_4k", False,
+                          mapping="fsdp_cp", device="cpu", smoke=True,
+                          layers=1)
+    assert rep.hlo_flops == counts[15][0]
+
+
 def test_a_production_mesh_needs_its_process_group():
     with D.fake_world(4), pytest.raises(RuntimeError, match="256 ranks"):
         make_production_mesh(device="cpu")

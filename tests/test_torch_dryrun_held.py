@@ -1,6 +1,8 @@
 """Shared by ``tests/test_torch_dryrun_held_{train,prefill,decode}.py``,
-``tests/test_torch_dryrun_baseline_{train,prefill,decode}.py`` and
-``tests/test_torch_dryrun_held_multipod.py`` (no tests of its own):
+``tests/test_torch_dryrun_baseline_{train,prefill,decode}.py``,
+``tests/test_torch_dryrun_held_multipod.py`` and
+``tests/test_torch_dryrun_fsdp_cp_{dense,families,multipod}.py`` (no
+tests of its own):
 every cell of the dry run's sweep — each architecture of
 ``list_archs()`` at each of its shapes — traced on the 16 x 16
 production mesh at full width and 1 layer (jamba one period of 8), held
@@ -9,10 +11,11 @@ to the reference's own dry run of the same cell.
 A cell is ``(arch, shape, layers, *modes)``: no mode is the default
 mapping on 16 x 16, ``"baseline"`` the paper-faithful mapping
 (``lower_cell(..., baseline=True)``: no ``act_spec``/``qkv_spec``, no
-FSDP, no ZeRO-1, the MoE under ``gather``) and ``"multi"`` the
-2 x 16 x 16 mesh with axes ``("pod", "data", "model")``
-(``"fsdp_cp"``, ``--mapping fsdp_cp``, is only tabled: see ROADMAP
-Queue 3).
+FSDP, no ZeRO-1, the MoE under ``gather``), ``"multi"`` the
+2 x 16 x 16 mesh with axes ``("pod", "data", "model")`` and
+``"fsdp_cp"`` ``--mapping fsdp_cp`` (train: no tensor parallelism, the
+sequence over ``model``, ZeRO-3 over both axes; held by
+``tests/test_torch_dryrun_fsdp_cp_{dense,families,multipod}.py``).
 
 The reference's counts come from one child python per file,
 ``tests/test_torch_dryrun_ref.py --production <out.json>
@@ -94,6 +97,25 @@ def file_cells(name):
     return out + [MOVED] if name == "decode" else out
 
 
+#: the ``fsdp_cp`` files' train cells (16 x 16, or 2 x 16 x 16 for
+#: ``multipod``), split so that each file's reference fixture lowers in
+#: about 90 s on one core or less
+FSDP_CP_FAMILIES = ("dbrx_132b", "qwen3_moe_30b_a3b", "jamba_v0_1_52b",
+                    "mamba2_2_7b", "t5_large", "whisper_tiny")
+FSDP_CP_MULTIPOD = ("h2o_danube_1_8b", "qwen2_vl_72b", "qwen3_moe_30b_a3b",
+                    "mamba2_2_7b")
+
+
+def fsdp_cp_cells(name):
+    """The train cells of ``tests/test_torch_dryrun_fsdp_cp_<name>.py``
+    (``dense``, ``families`` or ``multipod``), with their modes."""
+    if name == "multipod":
+        return [c for c in cells("train", "multi", "fsdp_cp")
+                if c[0] in FSDP_CP_MULTIPOD]
+    return [c for c in cells("train", "fsdp_cp")
+            if (c[0] in FSDP_CP_FAMILIES) == (name == "families")]
+
+
 def params(cells_):
     """pytest params of ``cells_`` (arch, shape, layers), the modes left
     out of the ids."""
@@ -126,12 +148,17 @@ def reference_fixture(name, cells_=None):
     return reference
 
 
+def _operands(r):
+    """The shapes of a traced record's first two operands."""
+    return [tuple(map(int, t.strip("()").split(", ")))
+            for t in r.shapes.split("),(")[:2]]
+
+
 def _product_flops(records, *mkn):
     """FLOPs of the traced ``aten.mm`` calls (m, k) x (k, n) at each of
     the (m, k, n) of ``mkn``."""
     def shape(r):
-        a, b = (tuple(map(int, t.strip("()").split(", ")))
-                for t in r.shapes.split("),("))
+        a, b = _operands(r)
         return a[0], a[1], b[1]
     return sum(r.flops * r.count for r in records
                if r.op == "aten.mm.default" and shape(r) in mkn)
@@ -145,7 +172,7 @@ def _ref_dots(dots, keep):
                          for part in key.split("|"))))
 
 
-def _head_rows(records, dots, cfg, shape, modes=()):
+def _head_rows(records, dots, cfg, shape, modes=(), skipped=0.0):
     """A train cell whose vocabulary ``model`` does not divide: the
     port's head multiplies each rank's rows once (its rows of the
     sequence, split over ``model``, by the whole head: forward, and the
@@ -164,13 +191,17 @@ def _head_rows(records, dots, cfg, shape, modes=()):
     head = _product_flops(records, (rows, d, v), (rows, v, d), (d, rows, v),
                           (v, rows, d))
     assert head == 3 * 2 * rows * d * v, (head, rows)
-    want = _ref_dots(dots, lambda *dims: any(v in t for t in dims))
+    # the reference's: every dot of the vocabulary, the rows and d alone
+    # (jamba's router, (T / data, d) x (d, E), has a vocabulary's 65536
+    # rows)
+    want = _ref_dots(dots, lambda *dims: any(v in t for t in dims) and all(
+        x in (rows, d, v) for t in dims for x in t))
     assert want == pytest.approx(seq // CE_CHUNK * head, rel=1e-12), (
         want, head)
     return head, want
 
 
-def _whole_down(records, dots, cfg, shape, modes=()):
+def _whole_down(records, dots, cfg, shape, modes=(), skipped=0.0):
     """The hybrid's prefill: the port splits the dense FFN over
     ``model`` (Megatron's column- and row-parallel products). The
     reference's XLA splits its up and gate products by rows and runs the
@@ -192,7 +223,7 @@ def _whole_down(records, dots, cfg, shape, modes=()):
     return down, want
 
 
-def _whole_ffn(records, dots, cfg, shape, modes=()):
+def _whole_ffn(records, dots, cfg, shape, modes=(), skipped=0.0):
     """The hybrid under ``--baseline``: the port splits the dense FFN
     over ``model`` (:func:`repro_torch.models.lm._model_split_ffn`,
     Megatron's column- and row-parallel products). Its weights sit in a
@@ -226,7 +257,7 @@ def _whole_ffn(records, dots, cfg, shape, modes=()):
     return port, want
 
 
-def _pod_ffn(records, dots, cfg, shape, modes=()):
+def _pod_ffn(records, dots, cfg, shape, modes=(), skipped=0.0):
     """The hybrid's decode on 2 x 16 x 16: the port computes its dense
     FFN (whole weights, as XLA keeps them in decode) on each rank's rows
     of the batch, split over ``("pod", "data")``. The reference's XLA
@@ -248,6 +279,147 @@ def _pod_ffn(records, dots, cfg, shape, modes=()):
     return port, want
 
 
+#: the reference's attention products under ``--mapping fsdp_cp`` over
+#: the port's, by head layout (grouped KV heads, or one KV head a query
+#: head). The port runs 9 products a block pair, each rank's S / model
+#: queries against all S keys: QKᵀ and PV forward, again in the
+#: recompute, then QKᵀ, dV, dP, dQ and dK. The reference's XLA runs
+#: every pair of the flash scans' 8 query blocks and 4 key blocks on
+#: every rank of ``model``, on a share of each block that the 16 ranks
+#: overlap (its HLO, h2o and gpt2 train_4k, the dots' block shapes
+#: times their loops' trip counts of 8 and 4): with grouped KV heads
+#: 256 queries of a 512-row block against 512 keys in QKᵀ and dP, all
+#: 1024 of the block in PV and dQ, and 256 in dV and dK — 22 units of
+#: 256 x 256 a pair, 44 port products in all; with one KV head a query
+#: head all 512 queries against 256 keys in QKᵀ, dP, dV and dK and 256
+#: against 256 in PV and dQ — 30 port products
+CP_ATTENTION = {True: 44 / 9, False: 30 / 9}
+
+
+def _cp_attention(records, dots, cfg, shape, modes=(), skipped=0.0):
+    """Attention under ``--mapping fsdp_cp`` (:data:`CP_ATTENTION`).
+    Holds the port's block products, as traced plus the pairs
+    ``flash_torch`` skipped, to 9 products of one rank's queries against
+    all keys (its rows of the batch, every query head, S / model
+    queries, all S keys), and the reference's, read from its HLO (every
+    4-dimensional dot over the rank's batch and heads), to their
+    multiple of the port's, both exactly; returns (the port's, the
+    reference's)."""
+    seq = SHAPES[shape].seq_len
+    b, h, hd = SHAPES[shape].global_batch // data_of(modes), \
+        cfg.n_heads, cfg.head_dim
+    unit = 2 * b * h * (seq // MODEL) * seq * hd
+    # a hybrid's period holds one attention layer
+    n_layers = cfg.n_layers // (cfg.hybrid_period or 1)
+
+    def attention(r):
+        if r.op not in ("aten.bmm.default", "aten.baddbmm.default"):
+            return False
+        a, w = _operands(r)
+        return a[0] == b * h and hd in a[1:] + w[1:]
+    port = sum(r.flops * r.count for r in records if attention(r)) + skipped
+    assert port == 9 * n_layers * unit, (port / unit, n_layers)
+    want = _ref_dots(dots, lambda *dims: all(
+        len(t) == 4 and t[:2] == (b, h) for t in dims))
+    mult = CP_ATTENTION[cfg.n_kv_heads < cfg.n_heads]
+    assert want == pytest.approx(mult * port, rel=1e-12), (want / port,
+                                                          mult)
+    return port, want
+
+
+def _router_rows(records, dots, cfg, shape, modes=(), skipped=0.0):
+    """The MoE's router under ``--mapping fsdp_cp``: the port routes
+    each rank's tokens (its rows of the batch, S / model positions of
+    each), in fp32: the forward, its recompute and the two gradients.
+    The reference's XLA runs the router on the tokens split over
+    ``data`` alone, each rank all S positions: ``model`` times the
+    port's rows. Holds the port's four products to their formula and
+    the reference's, read from its HLO (every dot over (rows, d, E) at
+    its rows), to ``model`` times the port's, both exactly; returns
+    (the port's, the reference's)."""
+    seq = SHAPES[shape].seq_len
+    rows = SHAPES[shape].global_batch // data_of(modes) * (seq // MODEL)
+    d, e = cfg.d_model, cfg.moe.n_experts
+    n_moe = _n_moe_layers(cfg)
+    port = _product_flops(records, (rows, d, e), (rows, e, d), (d, rows, e))
+    assert port == 4 * n_moe * 2 * rows * d * e, (port, n_moe)
+    # (jamba's head, (rows, d) x (d, V), has 65536 = model x rows
+    # columns: a router's dot names E)
+    want = _ref_dots(dots, lambda *dims: all(
+        set(t) <= {MODEL * rows, d, e} for t in dims) and any(
+            MODEL * rows in t for t in dims) and any(e in t for t in dims))
+    assert want == pytest.approx(MODEL * port, rel=1e-12), (want, port)
+    return port, want
+
+
+def _pod_experts(records, dots, cfg, shape, modes=(), skipped=0.0):
+    """The MoE's experts under ``--mapping fsdp_cp`` on 2 x 16 x 16: the
+    port splits every expert's C capacity slots over the 512 ranks that
+    split the tokens (``moe._gather_on_slots``) and multiplies each
+    rank's C / 512 slots by the whole weights: 12 products a layer (3
+    forward, 3 in the recompute, 2 gradients of each). The reference's
+    XLA multiplies all C slots by the weights' ZeRO-3 shard, which
+    ``pod`` does not split (``fsdp_axes=("data", "model")``): each pod
+    repeats the work, twice the port's. Holds the port's expert products
+    to their formula and the reference's, read from its HLO (every
+    3-dimensional dot over the E experts with the whole capacity among
+    its dims), to twice the port's, both exactly; returns (the port's,
+    the reference's)."""
+    from repro_torch.models.moe import capacity
+    m = cfg.moe
+    cap = capacity(SHAPES[shape].global_batch * SHAPES[shape].seq_len, m)
+    slots = -(-cap // (data_of(modes) * MODEL))
+    e, d, f = m.n_experts, cfg.d_model, m.d_ff_expert
+
+    def expert(r):
+        if r.op != "aten.bmm.default":
+            return False
+        a, w = _operands(r)
+        return a[0] == w[0] == e and set(a[1:] + w[1:]) <= {slots, d, f}
+    port = sum(r.flops * r.count for r in records if expert(r))
+    assert port == 12 * _n_moe_layers(cfg) * 2 * e * slots * d * f, port
+    want = _ref_dots(dots, lambda *dims: all(
+        len(t) == 3 and t[0] == e for t in dims) and any(
+            cap in t for t in dims))
+    assert want == pytest.approx(2 * port, rel=1e-12), (want, port)
+    return port, want
+
+
+def _n_moe_layers(cfg):
+    """The MoE layers of a cell's config: every layer, or in a hybrid's
+    period its SSM layers' MoE FFNs and the attention layer's."""
+    if not cfg.hybrid_period:
+        return cfg.n_layers
+    from repro_torch.models.lm import hybrid_ssm_split
+    return (hybrid_ssm_split(cfg)[0] + 1) * (cfg.n_layers
+                                             // cfg.hybrid_period)
+
+
+def _together(*causes):
+    """A cell's causes, each held to its formula: the sums of (the
+    port's FLOPs, the reference's)."""
+    def cause(records, dots, cfg, shape, modes=(), skipped=0.0):
+        parts = [c(records, dots, cfg, shape, modes, skipped)
+                 for c in causes]
+        return sum(p for p, _ in parts), sum(w for _, w in parts)
+    cause.__name__ = "+".join(c.__name__ for c in causes)
+    return cause
+
+
+def fsdp_cp_causes(arch, multi=False):
+    """An ``fsdp_cp`` train cell's causes: the head's rows (its
+    vocabulary whole on every rank; qwen2_vl's the reference splits over
+    every rank, as the port counts it), the flash scans (every
+    architecture with attention past ``auto``'s 2048-key threshold),
+    the MoE's router, and on 2 x 16 x 16 the MoE's experts, repeated by
+    each pod."""
+    moe = get_config(arch).moe is not None
+    return _together(*([_head_rows] if arch != "qwen2_vl_72b" else [])
+                     + ([_cp_attention] if arch not in (
+                         "mamba2_2_7b", "t5_large", "whisper_tiny") else [])
+                     + ([_router_rows] if moe else [])
+                     + ([_pod_experts] if moe and multi else []))
+
 #: (arch, shape, modes) → the stated cause of work the reference does
 #: and the port does not: a function (records, the reference's ``dots``,
 #: cfg, shape, modes) → (the port's FLOPs of that kind, the
@@ -261,7 +433,10 @@ CAUSES = {**{(a, "train_4k", m): _head_rows
              for m in ((), ("multi",))},
           **{("jamba_v0_1_52b", s, ("baseline",)): _whole_ffn
              for s in ("train_4k", "prefill_32k")},
-          ("jamba_v0_1_52b", "decode_32k", ("multi",)): _pod_ffn}
+          ("jamba_v0_1_52b", "decode_32k", ("multi",)): _pod_ffn,
+          **{(a, "train_4k", ("multi",) * multi + ("fsdp_cp",)):
+             fsdp_cp_causes(a, multi) for a in list_archs()
+             for multi in (False, True)}}
 
 #: cells whose collective bytes are held to the reference's with every
 #: operand of its combined collectives counted
@@ -328,7 +503,7 @@ def check_cell(reference, arch, shape, layers, monkeypatch, modes=()):
     flops, skipped, coll, records = _trace(arch, shape, layers, monkeypatch,
                                            modes)
     want = reference[ref.cell_key(arch, shape, layers, *modes)]
-    every, total = residual(want, flops + skipped, records, arch, shape,
+    every, total = residual(want, flops, skipped, records, arch, shape,
                             layers, modes)
     assert abs(every - total) <= CLOSE * total, (every, total)
     assert 0 < coll <= (1 + CLOSE) * coll_bar(want, arch, shape, modes), (
@@ -345,19 +520,21 @@ def coll_bar(want, arch, shape, modes=()):
     return want["every_operand"]
 
 
-def residual(want, every, records, arch, shape, layers, modes=()):
-    """(the port's no-skip FLOPs ``every``, the reference's) less, for a
-    cell of :data:`CAUSES`, each side's products of the stated cause,
-    held to their formulas first; the reference's dots by shape must sum
-    to its count."""
+def residual(want, flops, skipped, records, arch, shape, layers,
+             modes=()):
+    """(the port's no-skip FLOPs — ``flops`` as traced plus the
+    ``skipped`` pairs' —, the reference's) less, for a cell of
+    :data:`CAUSES`, each side's products of the stated cause, held to
+    their formulas first; the reference's dots by shape must sum to its
+    count."""
     assert sum(want["dots"].values()) == pytest.approx(want["flops"],
                                                        rel=1e-12)
-    total = want["flops"]
+    every, total = flops + skipped, want["flops"]
     cause = CAUSES.get((arch, shape, tuple(modes)))
     if cause is not None:
         port, ref_part = cause(records, want["dots"],
                                D.cell_config(arch, layers=layers), shape,
-                               modes)
+                               modes, skipped)
         every, total = every - port, total - ref_part
     return every, total
 
@@ -388,8 +565,8 @@ def table(kinds, modes=()):
                   f"{type(e).__name__} | | |", flush=True)
             continue
         try:
-            every, total = residual(w, flops + skipped, records, arch, shape,
-                                    layers, modes)
+            every, total = residual(w, flops, skipped, records, arch,
+                                    shape, layers, modes)
             held = "" if (arch, shape, tuple(modes)) not in CAUSES else \
                 f"{every / total:.3f}"
         except AssertionError:             # a table row: the cause unmet

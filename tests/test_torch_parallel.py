@@ -547,21 +547,48 @@ def test_decode_on_a_placed_cache_equals_the_plain_decode(worlds, name):
                                    atol=bar, rtol=bar)
 
 
-@pytest.mark.parametrize("arch", ranks.FSDP_FAMILIES + ("fsdp_cp",))
+@pytest.mark.parametrize("arch", ranks.FSDP_FAMILIES
+                         + tuple(ranks.FSDP_CP_STEPS))
 def test_fsdp_step_of_each_family_on_a_2x2_mesh(worlds, arch):
     """The SSM family (its block split over ``model`` by heads, weights
     entering whole), the hybrid (the same SSM split beside attention and
-    the gather MoE), the audio enc-dec, the VLM, and qwen2 under the
-    ``fsdp_cp``
-    mapping (the sequence over ``model``, weights whole, K/V gathered):
-    loss and gradient norm within two fp32 ulps of the plain step's (a
-    shard's products sum in another order than the whole batch's)."""
+    the gather MoE), the audio enc-dec, the VLM, and under the
+    ``fsdp_cp`` mapping (the sequence over ``model``, weights whole, K/V
+    gathered) qwen2, the MoE (every expert's queue formed whole, the
+    capacity slots split over the four ranks) and the VLM (patch
+    embeddings and tokens): loss and gradient norm within two fp32 ulps
+    of the plain step's (a shard's products sum in another order than
+    the whole batch's). Under ``fsdp_cp`` the residual stream enters
+    the first layer split along the sequence over ``model``."""
     _, outs = worlds[4]
     for o in outs:
         for k in ("loss", "grad_norm"):
             want = o[f"fsdp_step/{arch}/want_{k}"]
             assert abs(o[f"fsdp_step/{arch}/{k}"] - want) \
                 <= 2 * np.spacing(want), k
+        if arch in ranks.FSDP_CP_STEPS:
+            assert list(o[f"fsdp_step/{arch}/stream_placements"]) == [
+                "S(0)", "S(1)"]
+
+
+@pytest.mark.parametrize("name", [n for n in ranks.FSDP_CP_STEPS
+                                  if n != "fsdp_cp"])
+def test_fsdp_cp_step_matches_the_reference(worlds, name):
+    """The MoE's and the VLM's smoke steps under ``fsdp_cp`` on the
+    2 x 2 mesh against the reference's own loss (plain, fp32, naive
+    attention) on the same parameters and batch: rtol 1e-5."""
+    from repro.configs.base import get_config as ref_get_config
+    from repro.configs.base import smoke_config as ref_smoke_config
+    from repro.models import api as ref_api
+    model = ref_api.build_model(
+        ref_smoke_config(ref_get_config(ranks.FSDP_CP_STEPS[name])),
+        RL.ModelOptions(dtype=jnp.float32, remat=False, attn_impl="naive"))
+    key = f"fsdp_step/{name}"
+    _, outs = worlds[4]
+    tree, batch = _reference_inputs(outs[0], key)
+    want = float(model.loss(tree, batch))
+    for o in outs:
+        np.testing.assert_allclose(o[f"{key}/loss"], want, rtol=1e-5)
 
 
 @pytest.mark.parametrize("arch", sorted(ranks.TP_STEPS))

@@ -40,8 +40,11 @@ Jobs (each keyed ``<job>/...`` in the outputs):
 * ``fsdp_step``: the smoke qwen2_1_5b train step on a (2, 2) mesh, the
   parameters placed by ``param_specs(fsdp_axes="data")``, the moments by
   ``zero1_specs``, the batch over ``data``, against the plain step; the
-  steps of :data:`FSDP_FAMILIES` likewise; and the qwen2 step under the
-  dry run's ``fsdp_cp`` mapping (port only);
+  steps of :data:`FSDP_FAMILIES` likewise; and the steps of
+  :data:`FSDP_CP_STEPS` (qwen2, qwen3_moe, qwen2_vl) under the dry run's
+  ``fsdp_cp`` mapping, with the residual stream's placements as it
+  enters the first layer (port only; the MoE's and the VLM's parameters
+  and batch from rank 0, for the reference's loss);
 * ``tp_step``: the train steps of :data:`TP_STEPS` on a (2, 2) mesh under
   the dry run's own options, one attention head a rank, against the
   plain step (port only);
@@ -472,23 +475,40 @@ def port_fsdp_step(rank, world):
             out[f"fsdp_step/{impl}/want_{k}"] = want[k].numpy()
     for arch in FSDP_FAMILIES:
         out.update(_fsdp_family_step(mesh, arch))
-    out.update(_fsdp_cp_step(mesh))
+    for arch in FSDP_CP_STEPS:
+        out.update(_fsdp_cp_step(mesh, arch, rank))
     return out
 
 
-def _fsdp_cp_step(mesh):
-    """The smoke qwen2 step under the dry run's ``fsdp_cp`` mapping: no
-    tensor parallelism, the sequence over ``model`` (context
-    parallelism), ZeRO-3 over both axes; against the plain step."""
+#: the ``fsdp_step`` job's smoke steps under the dry run's ``fsdp_cp``
+#: mapping, by result name: the dense model (its own batch of 40
+#: tokens), the MoE (its tokens split over both axes: every expert's
+#: queue formed whole, the capacity slots split over the ranks,
+#: ``moe._gather_on_slots``) and the VLM (its stream, patch embeddings
+#: and tokens, split along the sequence from the start,
+#: ``lm.start_stream``)
+FSDP_CP_STEPS = {"fsdp_cp": "qwen2_1_5b",
+                 "fsdp_cp-qwen3_moe_30b_a3b": "qwen3_moe_30b_a3b",
+                 "fsdp_cp-qwen2_vl_72b": "qwen2_vl_72b"}
+
+
+def _fsdp_cp_step(mesh, name, rank):
+    """A smoke step under the dry run's ``fsdp_cp`` mapping: no tensor
+    parallelism, the sequence over ``model`` (context parallelism),
+    ZeRO-3 over both axes; against the plain step. Also the placements
+    of the residual stream as it enters the first layer, and on rank 0
+    the parameters and the batch (for the reference's loss)."""
     import torch
 
-    from repro_torch.configs.base import get_config, smoke_config
-    from repro_torch.models.api import build_model
+    from repro_torch.configs.base import ShapeConfig, get_config, smoke_config
+    from repro_torch.models import lm
+    from repro_torch.models.api import build_model, make_batch
     from repro_torch.models.layers import ModelOptions
     from repro_torch.parallel import sharding as sh
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_step
-    cfg = smoke_config(get_config("qwen2_1_5b"))
+    from repro_torch.train.tree import leaf_paths
+    cfg = smoke_config(get_config(FSDP_CP_STEPS[name]))
     plain = ModelOptions(dtype=torch.float32, attn_impl="flash_torch",
                          block_q=16, block_kv=16, remat=True)
     cp = ModelOptions(**{**plain.__dict__,
@@ -498,22 +518,36 @@ def _fsdp_cp_step(mesh):
     params = build_model(cfg, plain).init(torch.Generator().manual_seed(0),
                                           "cpu")
     state = opt.init(params)
-    toks = torch.randint(0, cfg.vocab, (2, 40), dtype=torch.int32,
-                         generator=torch.Generator().manual_seed(1))
-    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    if name == "fsdp_cp":
+        toks = torch.randint(0, cfg.vocab, (2, 40), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    else:
+        batch = make_batch(cfg, ShapeConfig("fsdp_cp", 64, 2, "train"),
+                           torch.Generator().manual_seed(1), "cpu", plain)
     _, _, want = make_train_step(cfg, plain)(params, state, batch)
     pspecs = sh.param_specs(params, mesh, model_axis="__no_tp__",
                             fsdp_axes=("data", "model"))
     step = make_train_step(cfg, cp, grad_specs=pspecs)
+    dparams = sh.distribute_tree(params, pspecs, mesh)
+    dbatch = sh.distribute_tree(batch, sh.batch_specs(
+        batch, mesh, ("data",)), mesh)
     with sh.use_mesh(mesh):
-        _, _, got = step(sh.distribute_tree(params, pspecs, mesh),
-                         sh.distribute_tree(state, opt.state_specs(pspecs),
-                                            mesh),
-                         sh.distribute_tree(batch, sh.batch_specs(
-                             batch, mesh, ("data",)), mesh))
-    return {f"fsdp_step/fsdp_cp/{w}{k}": m[k].numpy()
-            for w, m in (("", got), ("want_", want))
-            for k in ("loss", "grad_norm")}
+        stream, _ = lm.embed_inputs(cfg, dparams, dbatch, cp)
+        _, _, got = step(dparams, sh.distribute_tree(
+            state, opt.state_specs(pspecs), mesh), dbatch)
+    key = f"fsdp_step/{name}"
+    out = {f"{key}/{w}{k}": m[k].numpy()
+           for w, m in (("", got), ("want_", want))
+           for k in ("loss", "grad_norm")}
+    out[f"{key}/stream_placements"] = np.array(
+        [str(p) for p in stream.placements])
+    if rank == 0 and name != "fsdp_cp":
+        out.update({f"{key}/param/{p}": v.numpy()
+                    for p, v in leaf_paths(params)})
+        out.update({f"{key}/batch/{k}": v.numpy()
+                    for k, v in batch.items()})
+    return out
 
 
 #: the other families' smoke steps of the ``fsdp_step`` job (naive

@@ -185,3 +185,88 @@ def test_tensor_core_efficiency_is_a_fraction(m, n, k):
     # a large aligned GEMM beats a tiny one
     assert tensor_core_efficiency(8192, 8192, 8192) > \
         tensor_core_efficiency(8, 8, 8)
+
+
+#: the five deprecated wrappers' calls: (method, positional args,
+#: keyword args); the replays with noise on every knob
+WRAPPER_NOISE = dict(jitter_sigma=0.03, straggler_sigma=0.02,
+                     clock_sigma=1e-5)
+WRAPPERS = {
+    "predict": ("predict", (), {}),
+    "predict-positions": ("predict", (), {"positions": "own"}),
+    "replay": ("replay", (), {}),
+    "replay-seed-noise": ("replay", (3,), WRAPPER_NOISE),
+    "predict_batched": ("predict_batched", (), {}),
+    "replay_batched": ("replay_batched", ((0, 1, 2),), WRAPPER_NOISE),
+    "predict_and_replay": ("predict_and_replay", (), {}),
+    "predict_and_replay-seeds": ("predict_and_replay", ((4, 5),),
+                                 WRAPPER_NOISE),
+    "predict_and_replay-sequential": ("predict_and_replay", ((4, 5),),
+                                      {**WRAPPER_NOISE, "batched": False}),
+}
+
+
+def _same_result(a, b):
+    """Every field of two ``SimResult``s equal, float64 to the bit."""
+    assert type(a).__name__ == type(b).__name__ == "SimResult"
+    for f in ("batch_time", "throughput_iters", "throughput_tokens",
+              "bubble_fraction"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert np.float64(x).tobytes() == np.float64(y).tobytes(), f
+    assert list(a.utilization) == list(b.utilization)
+    assert np.array_equal(np.array(list(a.utilization.values())),
+                          np.array(list(b.utilization.values())))
+    assert a.timeline.n_devices == b.timeline.n_devices
+    assert [(x.device, x.kind, x.start, x.end)
+            for x in a.timeline.activities] == [
+        (x.device, x.kind, x.start, x.end) for x in b.timeline.activities]
+
+
+def _same_batch(a, b):
+    """Every array of two ``TimelineBatch``es equal, float64 to the bit."""
+    assert type(a).__name__ == type(b).__name__ == "TimelineBatch"
+    assert a.seeds == b.seeds
+    for f in ("n_devices", "dp", "pp", "mp", "n_sim"):
+        assert getattr(a, f) == getattr(b, f), f
+    for f in ("batch_times", "busy", "offsets"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype == np.float64 and x.tobytes() == \
+            y.tobytes(), f
+    for f in ("starts", "ends"):
+        assert len(getattr(a, f)) == len(getattr(b, f))
+        for x, y in zip(getattr(a, f), getattr(b, f)):
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), f
+
+
+@pytest.mark.parametrize("case", sorted(WRAPPERS))
+def test_deprecated_wrapper_bit_identical(case):
+    """Each of ``DistSim``'s five deprecated wrappers warns (the
+    reference's message, a ``DeprecationWarning``) and returns the
+    reference wrapper's result on the same config, strategy and
+    provider: every field of its ``SimResult`` or ``TimelineBatch``
+    equal, float64 to the bit — the seeds and ``predict_and_replay``'s
+    sequential ``engine.run(seed=)`` path included."""
+    name, args, kw = WRAPPERS[case]
+    out, said = [], []
+    for sim in sims("gpt2_345m", False, SCHEDULES["interleaved"],
+                    "A40_CLUSTER"):
+        call = dict(kw)
+        if call.get("positions") == "own":
+            call["positions"] = sim.positions()
+        with pytest.warns(DeprecationWarning,
+                          match=rf"^DistSim\.{name}\(\) is deprecated; "
+                                r"use DistSim\.") as rec:
+            out.append(getattr(sim, name)(*args, **call))
+        assert len(rec) == 1 and rec[0].filename == __file__
+        said.append(str(rec[0].message))
+    assert said[0] == said[1]
+    a, b = out
+    if name.endswith("_batched"):
+        _same_batch(a, b)
+    elif name == "predict_and_replay":
+        _same_result(a[0], b[0])
+        assert len(a[1]) == len(b[1]) == len(args[0] if args else (0,))
+        for x, y in zip(a[1], b[1]):
+            _same_result(x, y)
+    else:
+        _same_result(a, b)
