@@ -477,7 +477,7 @@ def phase_serve(port, store_mod, scan, store_dir: str):
                                     seq=SEQ, cluster=CLUSTER) for s in grid]
     log(f"serve: {len(queries)} strategy queries, {ARCH} full width")
 
-    scan.LAUNCHES = 0                       # just before the main path
+    start = counts()                        # just before the main path
     server = port.DistSim.serve(store_dir, backend="cuda")   # on the card
     t0 = time.perf_counter()
     cold = server.answer_batch(queries)
@@ -514,7 +514,7 @@ def phase_serve(port, store_mod, scan, store_dir: str):
     torch.cuda.synchronize()
     second_s = time.perf_counter() - t0
     snap_second = second.snapshot()
-    launches = scan.LAUNCHES                # just after the main path
+    launches = counts(start)["k1"]          # just after the main path
 
     programs = {key[1]: prog for key, prog in server._programs.items()}
     check(set(programs) == {None, pert}, f"programs {list(programs)}")
@@ -701,7 +701,7 @@ def phase_search(port, scan) -> dict:
     cfg = port_config(ARCH)
     grid = dict(microbatches=SEARCH_MICROBATCHES, schedules=SEARCH_SCHEDULES)
     log(f"search: {ARCH} on {N_DEVICES} devices, {grid}")
-    scan.LAUNCHES = 0                       # just before the search path
+    start = counts()                        # just before the search path
     engine = SearchEngine(cfg, clusters=port.H100_CLUSTER,
                           megabatch_backend="cuda")
     seconds, results = {}, {}
@@ -713,7 +713,7 @@ def phase_search(port, scan) -> dict:
         torch.cuda.synchronize()
         seconds[run] = time.perf_counter() - t0
         log(f"search: {run} {seconds[run]:.3f}s")
-    launches = scan.LAUNCHES                # just after the search path
+    launches = counts(start)["k1"]          # just after the search path
 
     (mb,) = engine._megabatch_programs.values()
     cold, warm, host = results["cold"], results["warm"], results["numpy"]
@@ -949,11 +949,11 @@ def phase_model(fa, rn):
 
     prefill = make_prefill_step(cfg, opts)
     with capture_inputs(ops, L, params["final_norm"]) as captured:
-        fa.LAUNCHES = fa.TC_LAUNCHES = 0    # just before the prefill
+        start = counts()                    # just before the prefill
         logits = prefill(params, batch)
         torch.cuda.synchronize()
-        k2_launches = fa.LAUNCHES           # just after
-        k2_tc_launches = fa.TC_LAUNCHES
+        done = counts(start)                # just after
+        k2_launches, k2_tc_launches = done["k2"], done["k2_tc"]
     check(k2_launches == cfg.n_layers,
           f"prefill launched K2 {k2_launches}x, expected {cfg.n_layers}")
     check(k2_tc_launches == cfg.n_layers,
@@ -976,10 +976,10 @@ def phase_model(fa, rn):
 
     # K3's path: its public entry on the final norm's input
     x = captured["final_norm_input"]
-    rn.LAUNCHES = 0                         # just before
+    start = counts()                        # just before
     normed = ops.rmsnorm(x, params["final_norm"])
     torch.cuda.synchronize()
-    k3_launches = rn.LAUNCHES               # just after
+    k3_launches = counts(start)["k3"]       # just after
     check(k3_launches == 1, f"ops.rmsnorm launched K3 {k3_launches}x")
     norm_err = max_abs_diff(normed.float(),
                             L.rmsnorm(x, params["final_norm"]).float())
@@ -1065,14 +1065,12 @@ def is_device_work(e) -> bool:
             and e.name != "Command Buffer Full")
 
 
-def device_breakdown(fn, top: int = 8, spans=()) -> dict:
+def device_breakdown(fn, top: int = 8) -> dict:
     """``torch.profiler`` over one call of ``fn``: the device's busy time
     (the union of the intervals of its kernels, copies and memsets),
     that time's share of the wall time, the ``top`` kernels by device
-    time, the ``top`` operators by the device time of the kernels they
-    launched themselves and, for each ``record_function`` range named in
-    ``spans``, the device time of the kernels launched inside it. Fails
-    if the share exceeds 1."""
+    time and the ``top`` operators by the device time of the kernels
+    they launched themselves. Fails if the share exceeds 1."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1097,18 +1095,11 @@ def device_breakdown(fn, top: int = 8, spans=()) -> dict:
     share = busy_us / wall_us
     check(share <= 1.0, f"device busy {busy_us} us of {wall_us} us wall")
     rows = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
-    span_us = {}
-    for e in prof.events():     # the CPU ranges; their GPU annotations
-        if e.name in spans and e.device_type == DeviceType.CPU:
-            n, us = span_us.get(e.name, (0, 0.0))
-            span_us[e.name] = (n + 1, us + e.device_time_total)
     ops = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CPU and e.key not in spans
+                  if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: e.self_device_time_total, reverse=True)
     return {"wall_us": wall_us, "device_busy_us": busy_us,
-            "spans": {k: {"count": n, "device_us": us}
-                      for k, (n, us) in sorted(span_us.items())},
             "top_ops": [{"op": e.key[:80], "count": e.count,
                          "device_us": e.self_device_time_total}
                         for e in ops[:top]],
@@ -1236,10 +1227,10 @@ def check_k2_case(fa, q, k, v, causal, window, tc: bool) -> float:
     check(fa.uses_tensor_cores(q, k, v) is tc,
           f"dispatch rule: tensor cores {not tc} for {tuple(q.shape)} "
           f"{q.dtype} strides {q.stride()}")
-    tc_before = fa.TC_LAUNCHES
+    start = counts()
     got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    check(fa.TC_LAUNCHES == tc_before + int(tc),
+    check(counts(start)["k2_tc"] == int(tc),
           f"{'no' if tc else 'a'} tensor-core launch for {tuple(q.shape)} "
           f"{q.dtype}")
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -1260,10 +1251,10 @@ def kernel_k2(fa, captured, launches: int, tc_launches: int) -> dict:
     def kernel():
         return fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
 
-    tc_before = fa.TC_LAUNCHES
+    start = counts()
     out = kernel()
     torch.cuda.synchronize()
-    check(fa.TC_LAUNCHES == tc_before + 1, "K2 bf16 missed the tensor cores")
+    check(counts(start)["k2_tc"] == 1, "K2 bf16 missed the tensor cores")
     ms = timed_ms(kernel, reps=10)
     log(f"kernels: K2 {ms:.3f} ms on layer 0's q, k, v; plain version")
     plain, plain_ms = event_ms(lambda: fa.flash_attention_plain(
@@ -1664,49 +1655,7 @@ def kernel_k3(rn, captured, launches: int) -> dict:
 # the training path and the simulator's loop
 # --------------------------------------------------------------------------
 
-#: ``record_function`` ranges put around these functions while a train
-#: step is profiled: (module, function, range name)
-TRAIN_SPANS = (("repro_torch.models.lm", "loss_fn", "forward+loss"),
-               ("repro_torch.models.lm", "_chunked_ce", "cross_entropy"),
-               ("repro_torch.models.layers", "_flash_fwd_impl",
-                "flash_torch_fwd"),
-               ("repro_torch.models.layers", "_flash_bwd_impl",
-                "flash_torch_bwd"),
-               ("repro_torch.train.optimizer", "update", "adamw"))
-
-
-@contextlib.contextmanager
-def named_spans(targets):
-    """While the block runs, each (module, function) of ``targets`` runs
-    inside a ``torch.profiler.record_function`` range of its name; the
-    calls themselves go through."""
-    import importlib
-    saved = []
-    for module, attr, label in targets:
-        mod = importlib.import_module(module)
-        real = getattr(mod, attr)
-
-        def wrapped(*args, _real=real, _label=label, **kw):
-            with torch.profiler.record_function(_label):
-                return _real(*args, **kw)
-
-        setattr(mod, attr, wrapped)
-        saved.append((mod, attr, real))
-    try:
-        yield
-    finally:
-        for mod, attr, real in saved:
-            setattr(mod, attr, real)
-
-
-def reset_launches(counters) -> None:
-    for mod in counters:
-        mod.LAUNCHES = 0
-        if hasattr(mod, "TC_LAUNCHES"):
-            mod.TC_LAUNCHES = 0
-
-
-def phase_train(counters) -> dict:
+def phase_train() -> dict:
     """``fit`` on full-width h2o_danube_1_8b: bf16, no remat, ``auto``
     attention (``flash_torch`` at 4096 keys), B=2 x S=4096, 6 steps,
     seed 0; then one more step of the same shapes under the profiler."""
@@ -1726,9 +1675,9 @@ def phase_train(counters) -> dict:
         f"S={TRAIN_SEQ}, {TRAIN_STEPS} steps")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(counters)                # just before the train path
+    start = counts()                        # just before the train path
     r = fit(cfg, opts, loop=loop, verbose=False)
-    launches = {m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES for m in counters}
+    launches = counts(start)
     peak = torch.cuda.max_memory_allocated()
     check(not any(launches.values()),
           f"the train path launched a kernel: {launches}")
@@ -1751,10 +1700,8 @@ def phase_train(counters) -> dict:
                    global_batch=TRAIN_BATCH), 0).items()}
     step = make_train_step(cfg, opts)
     params, state, _ = step(params, state, batch)      # warm
-    with named_spans(TRAIN_SPANS):
-        profile = device_breakdown(
-            lambda: step(params, state, batch)[2]["loss"].item(), top=12,
-            spans=[label for _, _, label in TRAIN_SPANS])
+    profile = device_breakdown(
+        lambda: step(params, state, batch)[2]["loss"].item(), top=12)
     del params, state, batch
     torch.cuda.empty_cache()
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -2193,9 +2140,17 @@ FAMILIES = (
 )
 
 
-def counts(fa, rn, scan) -> dict:
-    return {"k1": scan.LAUNCHES, "k2": fa.LAUNCHES,
-            "k2_tc": fa.TC_LAUNCHES, "k3": rn.LAUNCHES}
+#: the kernels' launch counters (:mod:`repro_torch.telemetry`) by the
+#: short names the JSON lines use
+LAUNCH_COUNTERS = {"k1": "k1.launches", "k2": "k2.launches",
+                   "k2_tc": "k2.tc_launches", "k3": "k3.launches"}
+
+
+def counts(since=None) -> dict:
+    """The kernels' launches so far, or since the earlier ``since``."""
+    from repro_torch.telemetry import COUNTS
+    now = {k: COUNTS.get(c, 0) for k, c in LAUNCH_COUNTERS.items()}
+    return now if since is None else {k: now[k] - since[k] for k in now}
 
 
 def free_card() -> None:
@@ -2388,11 +2343,11 @@ def run_family(fa, rn, scan, spec: Family, mesh) -> tuple:
     log(f"families: {spec.arch}, {cfg.n_layers} layers, {n} parameters; "
         f"prefill {spec.shapes}")
     prefill = make_prefill_step(cfg, opts)
-    reset_launches((fa, rn, scan))
+    start = counts()
     with capture_attention(ops) as captured:
         logits = prefill(params, batch)
         torch.cuda.synchronize()
-    pre = counts(fa, rn, scan)
+    pre = counts(start)
     k2 = spec.k2(cfg)
     check(pre == {"k1": 0, "k2": k2, "k2_tc": k2, "k3": 0},
           f"{spec.arch} prefill launched {pre}, expected K2 {k2} times on "
@@ -2414,7 +2369,7 @@ def run_family(fa, rn, scan, spec: Family, mesh) -> tuple:
                                     spec.decode_steps)
     decode_profile = device_breakdown(lambda: [
         step(params, cache, {"tokens": tok}) for _ in range(2)])
-    after = counts(fa, rn, scan)
+    after = counts(start)
     check(after["k1"] == after["k3"] == 0 and (k2 or after["k2"] == 0),
           f"{spec.arch} launched {after} over its run")
     peak = torch.cuda.max_memory_allocated()
@@ -2660,12 +2615,12 @@ def ep_prefill(fa, rn, scan, mesh, cfg, params, batch, gather_logits,
     from repro_torch.train.step import make_prefill_step
     log(f"parallel: {cfg.name} prefill through ep_a2a on one NCCL rank")
     prefill = make_prefill_step(cfg, ep_options(torch.bfloat16, "cuda"))
-    reset_launches((fa, rn, scan))
+    start = counts()
     moe.A2A_CALLS = 0
     with use_mesh(mesh):
         logits = prefill(params, batch)
         torch.cuda.synchronize()
-    launches, a2a = counts(fa, rn, scan), moe.A2A_CALLS
+    launches, a2a = counts(start), moe.A2A_CALLS
     k2 = cfg.n_layers
     check(launches == {"k1": 0, "k2": k2, "k2_tc": k2, "k3": 0},
           f"ep_a2a prefill launched {launches}, expected K2 {k2} times on "
@@ -3482,7 +3437,7 @@ def main() -> int:
         ring_row["seconds"] = time.perf_counter() - t0
     free_card()
 
-    train_line = phase_train((scan, fa, rn))
+    train_line = phase_train()
     loop_line = phase_loop_check(port, train_line["measured_seconds"])
     check_line = phase_train_check()
     free_card()

@@ -51,14 +51,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.kernels import refuse_autograd
-
-#: times a CUDA kernel (either one) was launched by
-#: :func:`flash_attention_cuda` (and nothing else adds to it): lets a run
-#: show that it went through the kernels
-LAUNCHES = 0
-#: the tensor-core kernel's share of :data:`LAUNCHES`
-TC_LAUNCHES = 0
 
 NEG_INF = -1e30
 #: widest head the kernel takes (its hd is padded to 32/64/80/96/128)
@@ -222,55 +216,58 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
     """Wrapper of the CUDA kernels: checks the inputs, allocates the
     output, launches the kernel :func:`uses_tensor_cores` picks on the
-    current stream and checks the launch. It does not synchronise."""
-    global LAUNCHES, TC_LAUNCHES
-    refuse_autograd("flash_attention_cuda", q, k, v)
-    n_rep = _check_shapes(q, k, v, causal, window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_attention_cuda needs q, k, v on one "
-                             f"CUDA device; {name} lies on {t.device}")
-        if t.dtype != q.dtype or t.dtype not in _CODES:
-            raise TypeError(f"the kernel takes q, k, v of one dtype in "
-                            f"{sorted(map(str, _CODES))}; {name} is "
-                            f"{t.dtype}")
-        if t.stride(3) != 1:
-            raise ValueError(f"{name} must have unit head_dim stride; "
-                             f"strides {t.stride()}")
-    b, sq, h, hd = q.shape
-    sk = k.shape[1]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}, the kernel's "
-                         f"widest")
-    if b * h > 65535 or max(sq, sk, window or 0) >= 2 ** 31:
-        raise ValueError(f"B*H = {b * h} or a length exceeds the kernel's "
-                         f"grid")
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if b == 0 or sq == 0 or h == 0:
-        return out
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3])
-    tc = uses_tensor_cores(q, k, v)
-    lib = _library()["tc" if tc else "scalar"]
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides, b, h, n_rep, sq, sk, hd)
-    masks = (int(causal), window if window is not None else 0,
-             float(hd ** -0.5))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    current stream and checks the launch. It does not synchronise. Each
+    launch counts in ``k2.launches`` and, on the tensor cores, in
+    ``k2.tc_launches`` (:mod:`repro_torch.telemetry`)."""
+    with telemetry.span("k2.launch"):
+        refuse_autograd("flash_attention_cuda", q, k, v)
+        n_rep = _check_shapes(q, k, v, causal, window)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not t.is_cuda or t.device != q.device:
+                raise ValueError(f"flash_attention_cuda needs q, k, v on one "
+                                 f"CUDA device; {name} lies on {t.device}")
+            if t.dtype != q.dtype or t.dtype not in _CODES:
+                raise TypeError(f"the kernel takes q, k, v of one dtype in "
+                                f"{sorted(map(str, _CODES))}; {name} is "
+                                f"{t.dtype}")
+            if t.stride(3) != 1:
+                raise ValueError(f"{name} must have unit head_dim stride; "
+                                 f"strides {t.stride()}")
+        b, sq, h, hd = q.shape
+        sk = k.shape[1]
+        if hd > MAX_HEAD_DIM:
+            raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}, the kernel's "
+                             f"widest")
+        if b * h > 65535 or max(sq, sk, window or 0) >= 2 ** 31:
+            raise ValueError(f"B*H = {b * h} or a length exceeds the kernel's "
+                             f"grid")
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+        if b == 0 or sq == 0 or h == 0:
+            return out
+        strides = (ctypes.c_longlong * 12)(
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3])
+        tc = uses_tensor_cores(q, k, v)
+        lib = _library()["tc" if tc else "scalar"]
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                strides, b, h, n_rep, sq, sk, hd)
+        masks = (int(causal), window if window is not None else 0,
+                 float(hd ** -0.5))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if tc:
+                err = lib.flash_attention_tc_launch(*args, *masks, stream)
+                error_string = lib.flash_attention_tc_error_string
+            else:
+                err = lib.flash_attention_launch(*args, *masks,
+                                                 _CODES[q.dtype], stream)
+                error_string = lib.flash_attention_error_string
+        if err != 0:
+            msg = error_string(err).decode()
+            raise RuntimeError(
+                f"flash_attention {'tensor-core' if tc else 'scalar'} kernel "
+                f"launch failed: {msg} (cudaError {err})")
+        telemetry.count("k2.launches")
         if tc:
-            err = lib.flash_attention_tc_launch(*args, *masks, stream)
-            error_string = lib.flash_attention_tc_error_string
-        else:
-            err = lib.flash_attention_launch(*args, *masks,
-                                             _CODES[q.dtype], stream)
-            error_string = lib.flash_attention_error_string
-    if err != 0:
-        msg = error_string(err).decode()
-        raise RuntimeError(
-            f"flash_attention {'tensor-core' if tc else 'scalar'} kernel "
-            f"launch failed: {msg} (cudaError {err})")
-    LAUNCHES += 1
-    TC_LAUNCHES += int(tc)
-    return out
+            telemetry.count("k2.tc_launches")
+        return out

@@ -47,11 +47,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-SCAN_BACKENDS = ("auto", "torch", "cuda")
+from repro_torch import telemetry
 
-#: times the CUDA kernel was launched (by :func:`scan_walks`; nothing
-#: else adds to it): lets a run show that it went through the kernel
-LAUNCHES = 0
+SCAN_BACKENDS = ("auto", "torch", "cuda")
 
 #: most walks a lane may have: the kernel runs one thread per walk of a
 #: lane in one block, and stages each walk's rows in shared memory
@@ -383,8 +381,8 @@ def _scan_walks_cuda(w: Walks):
     """Wrapper of the CUDA kernel: checks its inputs, allocates the
     outputs, launches on the current stream and checks the launch. It
     does not synchronise: a fault inside the kernel (the watchdog's
-    trap) surfaces at the next synchronising call as a RuntimeError."""
-    global LAUNCHES
+    trap) surfaces at the next synchronising call as a RuntimeError.
+    Each launch counts in ``k1.launches`` (:mod:`repro_torch.telemetry`)."""
     _check_walks(w)
     if not w.out.is_cuda:
         raise ValueError(
@@ -413,5 +411,5 @@ def _scan_walks_cuda(w: Walks):
         msg = lib.megabatch_scan_error_string(err).decode()
         raise RuntimeError(
             f"megabatch_scan kernel launch failed: {msg} (cudaError {err})")
-    LAUNCHES += 1
+    telemetry.count("k1.launches")
     return ends, starts

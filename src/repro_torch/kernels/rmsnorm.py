@@ -25,12 +25,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ref import rmsnorm_ref
-
-#: times the CUDA kernel was launched by :func:`rmsnorm_cuda` (and
-#: nothing else adds to it): lets a run show that it went through it
-LAUNCHES = 0
 
 # dtype codes of csrc/rmsnorm.cu
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -132,8 +129,8 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """Wrapper of the CUDA kernel: checks its inputs, allocates the
     output, launches the variant :func:`plan` picks on x's device's
-    current stream and checks the launch. It does not synchronise."""
-    global LAUNCHES
+    current stream and checks the launch. It does not synchronise. Each
+    launch counts in ``k3.launches`` (:mod:`repro_torch.telemetry`)."""
     refuse_autograd("rmsnorm_cuda", x, scale)
     if not x.is_cuda:
         raise ValueError(f"rmsnorm_cuda needs a CUDA tensor; x lies on "
@@ -177,5 +174,5 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
         msg = lib.rmsnorm_error_string(err).decode()
         raise RuntimeError(
             f"rmsnorm kernel launch failed: {msg} (cudaError {err})")
-    LAUNCHES += 1
+    telemetry.count("k3.launches")
     return out

@@ -36,6 +36,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch import telemetry
 from repro_torch.kernels.ref import rmsnorm_ref
 from repro_torch.parallel import sharding
 
@@ -269,32 +270,33 @@ def _block_pairs(q_pos, k_pos, causal, window, block_q, block_kv):
     each block's range of valid positions over the batch, so a pair is
     never skipped while one entry survives; one copy to the host
     (:func:`_on_host`)."""
-    big = 2 ** 62
-    qp = _blockify(q_pos.long(), block_q, pad_value=-1).flatten(1)
-    kp = _blockify(k_pos.long(), block_kv, pad_value=2 ** 30).flatten(1)
-    qv, kv = qp >= 0, kp < 2 ** 29
-    nq, nk = qp.shape[0], kp.shape[0]
-    flat = torch.cat([qp.masked_fill(~qv, big).amin(1), qp.amax(1),
-                      qv.all(1).long(), kp.amin(1),
-                      kp.masked_fill(~kv, -big).amax(1),
-                      kv.all(1).long()])
-    flat = _on_host(flat).tolist()
-    qmin, qmax, qall = (flat[i * nq:(i + 1) * nq] for i in range(3))
-    kmin, kmax, kall = (flat[3 * nq + i * nk:3 * nq + (i + 1) * nk]
-                        for i in range(3))
-    pairs = []
-    for i in range(nq):
-        row = []
-        for j in range(nk):
-            some = (qmax[i] >= 0 and kmin[j] < 2 ** 29
-                    and (not causal or kmin[j] <= qmax[i])
-                    and (window is None or qmin[i] - kmax[j] < window))
-            every = (qall[i] and kall[j]
-                     and (not causal or qmin[i] >= kmax[j])
-                     and (window is None or qmax[i] - kmin[j] < window))
-            row.append(FULL if every else PARTIAL if some else SKIP)
-        pairs.append(row)
-    return pairs
+    with telemetry.span("attention.block_pairs"):
+        big = 2 ** 62
+        qp = _blockify(q_pos.long(), block_q, pad_value=-1).flatten(1)
+        kp = _blockify(k_pos.long(), block_kv, pad_value=2 ** 30).flatten(1)
+        qv, kv = qp >= 0, kp < 2 ** 29
+        nq, nk = qp.shape[0], kp.shape[0]
+        flat = torch.cat([qp.masked_fill(~qv, big).amin(1), qp.amax(1),
+                          qv.all(1).long(), kp.amin(1),
+                          kp.masked_fill(~kv, -big).amax(1),
+                          kv.all(1).long()])
+        flat = _on_host(flat).tolist()
+        qmin, qmax, qall = (flat[i * nq:(i + 1) * nq] for i in range(3))
+        kmin, kmax, kall = (flat[3 * nq + i * nk:3 * nq + (i + 1) * nk]
+                            for i in range(3))
+        pairs = []
+        for i in range(nq):
+            row = []
+            for j in range(nk):
+                some = (qmax[i] >= 0 and kmin[j] < 2 ** 29
+                        and (not causal or kmin[j] <= qmax[i])
+                        and (window is None or qmin[i] - kmax[j] < window))
+                every = (qall[i] and kall[j]
+                         and (not causal or qmin[i] >= kmax[j])
+                         and (window is None or qmax[i] - kmin[j] < window))
+                row.append(FULL if every else PARTIAL if some else SKIP)
+            pairs.append(row)
+        return pairs
 
 
 def _on_host(t: torch.Tensor) -> torch.Tensor:
@@ -302,8 +304,10 @@ def _on_host(t: torch.Tensor) -> torch.Tensor:
     ``FakeTensorMode``, which holds no data) has them where its fake
     mode carries them (``repro_torch.core.roofline.TraceCounter`` does
     for small integer tensors made from known values); otherwise this
-    raises rather than guess."""
+    raises rather than guess. A real tensor's copy counts as a
+    ``host_sync``: on the card the host waits for the device there."""
     if not is_fake(t):
+        telemetry.count("host_sync")
         return t.cpu()
     values_of = getattr(t.fake_mode, "values_of", None)
     values = values_of(t) if values_of is not None else None
@@ -450,24 +454,26 @@ class _FlashCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        qh, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
-        causal, window, block_q, block_kv, pairs = ctx.meta
-        b, sk, kh, hd = k.shape
-        sq, n_rep = q_pos.shape[1], qh.shape[1] // kh
-        dq, dk, dv = _flash_bwd_impl(
-            qh, _heads(k, n_rep, block_kv), _heads(v, n_rep, block_kv),
-            q_pos, k_pos, out, lse, _heads(dout, 1, block_q), causal,
-            window, block_q, block_kv, pairs)
+        with telemetry.span("attention.bwd"):
+            qh, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+            causal, window, block_q, block_kv, pairs = ctx.meta
+            b, sk, kh, hd = k.shape
+            sq, n_rep = q_pos.shape[1], qh.shape[1] // kh
+            dq, dk, dv = _flash_bwd_impl(
+                qh, _heads(k, n_rep, block_kv), _heads(v, n_rep, block_kv),
+                q_pos, k_pos, out, lse, _heads(dout, 1, block_q), causal,
+                window, block_q, block_kv, pairs)
 
-        def per_kv_head(g):      # the gradient of repeating K/V
-            g = g.view(b, kh, n_rep, -1, hd)[:, :, :, :sk].to(k.dtype)
-            total = g[:, :, 0]
-            for r in range(1, n_rep):        # in k's dtype, head by head
-                total = total + g[:, :, r]
-            return total.transpose(1, 2)
+            def per_kv_head(g):      # the gradient of repeating K/V
+                g = g.view(b, kh, n_rep, -1, hd)[:, :, :, :sk].to(k.dtype)
+                total = g[:, :, 0]
+                for r in range(1, n_rep):        # in k's dtype, head by head
+                    total = total + g[:, :, r]
+                return total.transpose(1, 2)
 
-        return (dq[:, :, :sq].transpose(1, 2).to(qh.dtype), per_kv_head(dk),
-                per_kv_head(dv), None, None, None, None, None, None)
+            return (dq[:, :, :sq].transpose(1, 2).to(qh.dtype),
+                    per_kv_head(dk), per_kv_head(dv), None, None, None, None,
+                    None, None)
 
 
 def attention_flash_torch(q, k, v, q_pos, k_pos, causal=True, window=None,
@@ -633,23 +639,24 @@ def attend_cache_on_shards(q, kc, vc, q_pos, k_pos):
 
 def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
               opts: ModelOptions = DEFAULT_OPTIONS):
-    if sharding.is_dtensor(q):
-        return _sharded_attention(q, k, v, q_pos, k_pos, causal, window,
-                                  opts)
-    impl = opts.attn_impl
-    if impl == "auto":
-        impl = "flash_torch" if k.shape[1] > opts.flash_threshold \
-            else "naive"
-    if impl == "naive":
-        return attention_naive(q, k, v, q_pos, k_pos, causal, window)
-    if impl == "flash_torch":
-        return attention_flash_torch(q, k, v, q_pos, k_pos, causal, window,
-                                     opts.block_q, opts.block_kv)
-    if impl == "cuda":
-        from repro_torch.kernels import ops as kops
-        return kops.flash_attention(q, k, v, q_pos, k_pos, causal=causal,
-                                    window=window)
-    raise ValueError(f"unknown attn_impl {impl!r}")
+    with telemetry.span("attention.fwd"):
+        if sharding.is_dtensor(q):
+            return _sharded_attention(q, k, v, q_pos, k_pos, causal, window,
+                                      opts)
+        impl = opts.attn_impl
+        if impl == "auto":
+            impl = "flash_torch" if k.shape[1] > opts.flash_threshold \
+                else "naive"
+        if impl == "naive":
+            return attention_naive(q, k, v, q_pos, k_pos, causal, window)
+        if impl == "flash_torch":
+            return attention_flash_torch(q, k, v, q_pos, k_pos, causal, window,
+                                         opts.block_q, opts.block_kv)
+        if impl == "cuda":
+            from repro_torch.kernels import ops as kops
+            return kops.flash_attention(q, k, v, q_pos, k_pos, causal=causal,
+                                        window=window)
+        raise ValueError(f"unknown attn_impl {impl!r}")
 
 
 class _ContiguousGrad(torch.autograd.Function):

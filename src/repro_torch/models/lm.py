@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import layers as L
@@ -912,8 +913,9 @@ def backbone(cfg: ArchConfig, params: Params, x: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         for lp in unstack_layers(params["ssm_layers"], cfg.n_layers):
-            x, a = run_layer(opts, _ssm_layer, cfg, lp, x, opts)
-            x, aux = L.constrain(x, opts), aux + a
+            with telemetry.span("lm.layer"):
+                x, a = run_layer(opts, _ssm_layer, cfg, lp, x, opts)
+                x, aux = L.constrain(x, opts), aux + a
         return x, aux
     if cfg.hybrid_period:
         fn, n = _hybrid_period, cfg.n_layers // cfg.hybrid_period
@@ -922,8 +924,9 @@ def backbone(cfg: ArchConfig, params: Params, x: torch.Tensor,
         fn, n = _attn_layer, cfg.n_layers
         stacked = params["attn_layers"]
     for lp in unstack_layers(stacked, n):
-        x, a = run_layer(opts, fn, cfg, lp, x, positions, opts, causal)
-        x, aux = L.constrain(x, opts), aux + a
+        with telemetry.span("lm.layer"):
+            x, a = run_layer(opts, fn, cfg, lp, x, positions, opts, causal)
+            x, aux = L.constrain(x, opts), aux + a
     return x, aux
 
 
@@ -951,10 +954,12 @@ def embed_inputs(cfg: ArchConfig, params: Params,
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             opts: ModelOptions = DEFAULT_OPTIONS) -> torch.Tensor:
     """Full forward to logits (B,S,V)."""
-    x, positions = embed_inputs(cfg, params, batch, opts)
-    x, _ = backbone(cfg, params, x, positions, opts)
-    x = L.rmsnorm(x, gather_fsdp(params["final_norm"]))
-    return x @ _head(cfg, params)
+    with telemetry.span("lm.forward"):
+        x, positions = embed_inputs(cfg, params, batch, opts)
+        x, _ = backbone(cfg, params, x, positions, opts)
+        with telemetry.span("lm.head"):
+            x = L.rmsnorm(x, gather_fsdp(params["final_norm"]))
+            return x @ _head(cfg, params)
 
 
 def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
@@ -1122,14 +1127,17 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     """Scalar training loss: chunked cross-entropy of the next-token
     labels (-1 = no target), the stub modality prefix carrying none,
     plus 0.01 × the MoE load-balance loss (0 without MoE)."""
-    x, positions = embed_inputs(cfg, params, batch, opts)
-    x, aux = backbone(cfg, params, x, positions, opts)
-    x = L.tp_input(L.rmsnorm(x, gather_fsdp(params["final_norm"])), opts)
-    labels = batch["labels"]
-    if labels.shape[1] != x.shape[1]:       # stub modality prefix: no loss
-        labels = _pad_prefix(labels, x.shape[1] - labels.shape[1])
-    ce = cross_entropy(x, _head(cfg, params), labels)
-    return ce + 0.01 * aux
+    with telemetry.span("lm.forward"):
+        x, positions = embed_inputs(cfg, params, batch, opts)
+        x, aux = backbone(cfg, params, x, positions, opts)
+        with telemetry.span("lm.head"):
+            x = L.tp_input(L.rmsnorm(x, gather_fsdp(params["final_norm"])),
+                           opts)
+            labels = batch["labels"]
+            if labels.shape[1] != x.shape[1]:   # stub modality prefix
+                labels = _pad_prefix(labels, x.shape[1] - labels.shape[1])
+            ce = cross_entropy(x, _head(cfg, params), labels)
+            return ce + 0.01 * aux
 
 
 # --------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.parallel.sharding import P
 from repro_torch.train.tree import leaves, map_leaves, unflatten_like
 
@@ -81,26 +82,27 @@ def global_norm(tree: Any) -> torch.Tensor:
 def update(cfg: AdamWConfig, params: Any, grads: Any,
            state: AdamWState) -> tuple:
     """One AdamW step. Returns (new_params, new_state, metrics)."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    step = state.step + 1
-    lr = lr_schedule(cfg, state.step)
-    b1c = 1 - cfg.b1 ** step.float()
-    b2c = 1 - cfg.b2 ** step.float()
+    with telemetry.span("optimizer.update"):
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+        step = state.step + 1
+        lr = lr_schedule(cfg, state.step)
+        b1c = 1 - cfg.b1 ** step.float()
+        b2c = 1 - cfg.b2 ** step.float()
 
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g.square()
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
+        def upd(p, g, m, v):
+            g = g.float() * scale
+            m = cfg.b1 * m + (1 - cfg.b1) * g
+            v = cfg.b2 * v + (1 - cfg.b2) * g.square()
+            delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+            delta = delta + cfg.weight_decay * p.float()
+            return (p.float() - lr * delta).to(p.dtype), m, v
 
-    cols = [leaves(t) for t in (params, grads, state.mu, state.nu)]
-    if any(len(c) != len(cols[0]) for c in cols):
-        raise ValueError("params, grads and moments differ in structure")
-    new = [upd(*x) for x in zip(*cols)]
-    new_p, new_m, new_v = (unflatten_like(params, [n[i] for n in new])
-                           for i in range(3))
-    metrics = {"grad_norm": gnorm, "lr": lr}
-    return new_p, AdamWState(step=step, mu=new_m, nu=new_v), metrics
+        cols = [leaves(t) for t in (params, grads, state.mu, state.nu)]
+        if any(len(c) != len(cols[0]) for c in cols):
+            raise ValueError("params, grads and moments differ in structure")
+        new = [upd(*x) for x in zip(*cols)]
+        new_p, new_m, new_v = (unflatten_like(params, [n[i] for n in new])
+                               for i in range(3))
+        metrics = {"grad_norm": gnorm, "lr": lr}
+        return new_p, AdamWState(step=step, mu=new_m, nu=new_v), metrics

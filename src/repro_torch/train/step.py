@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.api import build_model
 from repro_torch.models.layers import DEFAULT_OPTIONS, ModelOptions
@@ -44,8 +45,10 @@ def value_and_grad(loss_fn: Callable, params: Any,
     with torch.enable_grad():
         tree = map_leaves(lambda p: p.detach().requires_grad_(), params)
         loss = loss_fn(tree, batch)
-        grads = torch.autograd.grad(loss, leaves(tree), allow_unused=True,
-                                    materialize_grads=True)
+        with telemetry.span("lm.backward"):
+            grads = torch.autograd.grad(loss, leaves(tree),
+                                        allow_unused=True,
+                                        materialize_grads=True)
     return loss.detach(), unflatten_like(params, grads)
 
 
@@ -76,7 +79,8 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions = DEFAULT_OPTIONS,
     api = build_model(cfg, opts)
 
     def train_step(params, opt_state, batch):
-        with _over_dtensors(grad_specs is not None or _placed(params)):
+        with telemetry.span("step.train"), \
+                _over_dtensors(grad_specs is not None or _placed(params)):
             return _step(params, opt_state, batch)
 
     def _step(params, opt_state, batch):
@@ -119,7 +123,8 @@ def make_prefill_step(cfg: ArchConfig,
     api = build_model(cfg, opts)
 
     def prefill_step(params, batch):
-        with _over_dtensors(_placed(params)):
+        with telemetry.span("step.prefill"), \
+                _over_dtensors(_placed(params)):
             return api.forward(params, batch)
 
     return prefill_step

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.telemetry import COUNTS
 
 SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
           (1, 200, 8, 2, 32),           # ragged seq (padding path)
@@ -105,9 +106,9 @@ def test_non_causal_window_and_model_head():
 
 def test_cpu_tensors_take_the_plain_version():
     q, k, v = (torch.from_numpy(a) for a in qkv(1, 32, 2, 1, 32))
-    before = fa.LAUNCHES
+    before = COUNTS.get("k2.launches", 0)
     fa.flash_attention(q, k, v)
-    assert fa.LAUNCHES == before
+    assert COUNTS.get("k2.launches", 0) == before
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_and_bad_shapes():
@@ -342,11 +343,13 @@ def test_kernel_matches_plain_version_on_the_card():
             assert fa.uses_tensor_cores(q, k, v) is tc
             tol = BF16_TWO_ULPS if dtype == torch.bfloat16 \
                 else {"atol": 2e-5, "rtol": 2e-5}
-            before, tc_before = fa.LAUNCHES, fa.TC_LAUNCHES
+            before = COUNTS.get("k2.launches", 0)
+            tc_before = COUNTS.get("k2.tc_launches", 0)
             got = fa.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
-            assert fa.LAUNCHES == before + 1
-            assert fa.TC_LAUNCHES == tc_before + int(tc)
+            assert COUNTS.get("k2.launches", 0) == before + 1
+            assert COUNTS.get("k2.tc_launches", 0) == \
+                tc_before + int(tc)
             want = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
             np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -365,10 +368,11 @@ def test_kernel_matches_plain_version_on_the_card():
             tc = dtype == torch.bfloat16
             assert fa.uses_tensor_cores(q, k, v) is tc
             tol = BF16_TWO_ULPS if tc else {"atol": 2e-5, "rtol": 2e-5}
-            tc_before = fa.TC_LAUNCHES
+            tc_before = COUNTS.get("k2.tc_launches", 0)
             got = fa.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
-            assert fa.TC_LAUNCHES == tc_before + int(tc)
+            assert COUNTS.get("k2.tc_launches", 0) == \
+                tc_before + int(tc)
             want = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
             np.testing.assert_allclose(got.float().cpu().numpy(),

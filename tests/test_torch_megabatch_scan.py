@@ -23,6 +23,7 @@ from repro.core import (A40_CLUSTER, AnalyticalProvider, DistSim, Strategy,
 from repro.kernels import megabatch_scan as ref_scan
 from repro_torch.core.megabatch import PROGRAM_ARRAYS
 from repro_torch.kernels import megabatch_scan as scan
+from repro_torch.telemetry import COUNTS
 
 PROVIDER = AnalyticalProvider(A40_CLUSTER)
 
@@ -204,10 +205,10 @@ def _small():
 def test_cuda_backend_refuses_cpu_tensors():
     prog, _ = _small()
     w = walks_of(prog).to("cpu")
-    before = scan.LAUNCHES
+    before = COUNTS.get("k1.launches", 0)
     with pytest.raises(ValueError, match="CUDA device"):
         scan.scan_walks(w, backend="cuda")
-    assert scan.LAUNCHES == before           # nothing was launched
+    assert COUNTS.get("k1.launches", 0) == before  # nothing launched
 
 
 def test_unknown_backend_raises():
@@ -264,10 +265,10 @@ def test_kernel_bit_identical_to_plain_on_the_card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     prog = RandomProgram(5, 70, 400)
     w = walks_of(prog).to("cuda")
-    before = scan.LAUNCHES
+    before = COUNTS.get("k1.launches", 0)
     ends, starts = scan.scan_walks(w, backend="cuda")
     torch.cuda.synchronize()
-    assert scan.LAUNCHES == before + 1
+    assert COUNTS.get("k1.launches", 0) == before + 1
     assert_bit_identical(prog, ends.cpu(), starts.cpu())
     planes = [t.cuda() for t in tensors(prog)]
     pe, ps = scan.scan_steps(*planes, prog.n_slots,

@@ -38,6 +38,7 @@ from repro_torch.core.megabatch import (PROGRAM_ARRAYS, MegaBatch,
                                         program_from_arrays)
 from repro_torch.kernels import megabatch_scan as scan
 from repro_torch.kernels.megabatch_scan import build_walks
+from repro_torch.telemetry import COUNTS
 
 CAP = scan.MAX_WALKS
 
@@ -478,12 +479,12 @@ def test_megabatch_uploads_the_walk_layout_once():
 
 def test_scan_walks_refuses_cpu_tensors_for_the_kernel():
     layout = layout_of(RandomProgram(9, 3, 9))
-    before = scan.LAUNCHES
+    before = COUNTS.get("k1.launches", 0)
     with pytest.raises(ValueError, match="CUDA device"):
         scan.scan_walks(layout.to("cpu"), backend="cuda")
     with pytest.raises(ValueError, match="CUDA device"):
         scan._scan_walks_cuda(layout.to("cpu"))
-    assert scan.LAUNCHES == before
+    assert COUNTS.get("k1.launches", 0) == before
 
 
 def test_scan_walks_checks_its_inputs():
@@ -517,11 +518,11 @@ def test_max_walks_is_derived_from_the_layout():
     one_lane = dataclasses.replace(
         w, lane_walk_ptr=torch.tensor([0, walks], dtype=torch.int32))
     assert one_lane.max_walks == walks > CAP
-    before = scan.LAUNCHES
+    before = COUNTS.get("k1.launches", 0)
     for call in (scan.scan_walks, scan._scan_walks_cuda):
         with pytest.raises(ValueError, match="at most"):
             call(one_lane)
-    assert scan.LAUNCHES == before
+    assert COUNTS.get("k1.launches", 0) == before
 
 
 @pytest.mark.parametrize("max_walks,threads", [(0, 32), (1, 32), (32, 32),
@@ -540,10 +541,10 @@ def test_kernel_bit_identical_on_the_card():
     for name, make in sorted(RANDOM.items()):
         prog = make()
         w = layout_of(prog).to("cuda")
-        before = scan.LAUNCHES
+        before = COUNTS.get("k1.launches", 0)
         ek, sk = scan.scan_walks(w, backend="cuda")
         torch.cuda.synchronize()
-        assert scan.LAUNCHES == before + 1, name
+        assert COUNTS.get("k1.launches", 0) == before + 1, name
         ep, sp = scan.scan_walks(w, backend="torch")
         assert torch.equal(ek, ep) and torch.equal(sk, sp), name
         assert_same_bits(prog, ek.cpu().numpy(), sk.cpu().numpy())

@@ -875,6 +875,40 @@ def test_sharded_train_step_equals_the_plain_step(one_rank, remat):
     assert all(sh.is_dtensor(m) for m in mu)
 
 
+def test_a_recorded_sharded_step_equals_the_plain_step(one_rank):
+    """The program's spans record a step over DTensors as over plain
+    tensors, and change none of its numbers."""
+    from repro_torch import telemetry
+    cfg = smoke_config(get_config("qwen2_1_5b"))
+    opts = L.ModelOptions(dtype=torch.float32, attn_impl="flash_torch",
+                          block_q=16, block_kv=16, remat=False)
+    params = build_model(cfg, opts).init(torch.Generator().manual_seed(0),
+                                         "cpu")
+    state = opt.init(params)
+    toks = torch.randint(0, cfg.vocab, (2, 40), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    with telemetry.recording() as plain:
+        want_p, _, want = make_train_step(cfg, opts)(params, state, batch)
+    mesh = one_rank["dm"]
+    pspecs = sh.param_specs(params, mesh, fsdp_axes="data")
+    ospecs = sh.zero1_specs(state, opt.state_specs(pspecs), mesh)
+    step = make_train_step(cfg, opts, grad_specs=pspecs)
+    with sh.use_mesh(mesh), telemetry.recording() as rec:
+        got_p, _, got = step(sh.distribute_tree(params, pspecs, mesh),
+                             sh.distribute_tree(state, ospecs, mesh), batch)
+    assert torch.equal(got["loss"], want["loss"])
+    for w, g in zip(leaves(want_p), leaves(got_p)):
+        assert torch.equal(g.full_tensor(), w)
+    names = [s.name for s in rec.spans]
+    assert names[0] == "step.train" and {s.unit for s in rec.spans} == {0}
+    for name in ("lm.layer", "attention.block_pairs", "attention.bwd"):
+        assert names.count(name) == cfg.n_layers, name
+    assert names.count("optimizer.update") == 1
+    assert rec.counts[0]["host_sync"] == plain.counts[0]["host_sync"] == \
+        cfg.n_layers
+
+
 def test_grad_specs_need_a_mesh():
     cfg = smoke_config(get_config("qwen2_1_5b"))
     opts = L.ModelOptions(dtype=torch.float32, remat=False)

@@ -32,6 +32,7 @@ import repro_torch.store as port_store
 import repro_torch.store.profile_store as port_ps
 import repro_torch.train.checkpoint as port_ckpt
 import repro_torch.validate as port_validate
+from repro_torch.telemetry import COUNTS
 
 PKGS = {"ref": (ref, ref_configs, ref_scn, ref_perturb),
         "port": (port, port_configs, port_scn, port_perturb)}
@@ -479,15 +480,14 @@ def test_perturbed_megabatch_on_the_card_equals_the_reference():
     (``chip_smoke.py``'s perturbed serve does the same at full width)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from repro_torch.kernels import megabatch_scan as scan
 
     def pert(pkg):
         return P(pkg, stragglers=((0, 1.5),))
 
-    before = scan.LAUNCHES
+    before = COUNTS.get("k1.launches", 0)
     got = port.MegaBatch(mega_engines("port")[1:],
                          perturb=pert("port")).predict("cuda")
-    assert scan.LAUNCHES == before + 1
+    assert COUNTS.get("k1.launches", 0) == before + 1
     want = ref.MegaBatch(mega_engines("ref")[1:],
                          perturb=pert("ref")).predict("numpy")
     assert np.array_equal(got.batch_times, want.batch_times)

@@ -21,6 +21,7 @@ from repro_torch.configs.base import get_config, list_archs
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models import layers
+from repro_torch.telemetry import COUNTS
 
 SHAPES = [(8, 128), (3, 100, 96), (2, 5, 7, 256), (1, 512), (4, 2560)]
 DTYPES = [("float32", torch.float32, 1e-5), ("bfloat16", torch.bfloat16,
@@ -70,9 +71,9 @@ def test_scale_of_another_dtype_and_eps():
 
 def test_cpu_tensors_take_the_plain_version():
     x, sc = (torch.from_numpy(a) for a in inputs((4, 32)))
-    before = rn.LAUNCHES
+    before = COUNTS.get("k3.launches", 0)
     rn.rmsnorm(x, sc)
-    assert rn.LAUNCHES == before
+    assert COUNTS.get("k3.launches", 0) == before
     with pytest.raises(ValueError, match="CUDA"):
         rn.rmsnorm_cuda(x, sc)
     with pytest.raises(ValueError, match="block_rows"):
@@ -231,10 +232,10 @@ def test_kernel_matches_plain_version_on_the_card():
             for eps in (1e-6, 1e-3):
                 p = rn.plan(d, dt, sdt, xt.data_ptr() % 16 == 0)
                 reached.add((p.variant, p.vpt, dt))
-                before = rn.LAUNCHES
+                before = COUNTS.get("k3.launches", 0)
                 got = ops.rmsnorm(xt, st, eps=eps)
                 torch.cuda.synchronize()
-                assert rn.LAUNCHES == before + 1
+                assert COUNTS.get("k3.launches", 0) == before + 1
                 want = rn.rmsnorm_plain(xt, st, eps)
                 what = f"{name} d={d} {dt} scale {sdt} eps {eps}"
                 if dt == torch.bfloat16:

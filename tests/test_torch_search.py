@@ -25,6 +25,7 @@ import repro.search as ref_search
 import repro_torch.configs.base as port_configs
 import repro_torch.core as port
 import repro_torch.search as port_search
+from repro_torch.telemetry import COUNTS
 
 GRID = dict(microbatches=(1, 2, 4, 8), schedules=("1f1b", "gpipe"))
 SEARCH = (16, 16, 128)
@@ -224,15 +225,14 @@ def test_search_on_the_card_equals_the_reference():
     (``chip_smoke.py``'s ``search`` line does the same at full width)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from repro_torch.kernels import megabatch_scan as scan
     rcfg, pcfg = cfgs()
     r = ref_search.SearchEngine(rcfg, clusters=ref.A40_CLUSTER)
     p = port_search.SearchEngine(pcfg, clusters=port.A40_CLUSTER)
     assert p.device.type == "cuda"
-    before = scan.LAUNCHES
+    before = COUNTS.get("k1.launches", 0)
     cold = p.search(*SEARCH, **GRID)
     warm = p.search(*SEARCH, **GRID)
-    assert scan.LAUNCHES == before + 2
+    assert COUNTS.get("k1.launches", 0) == before + 2
     want = r.search(*SEARCH, **GRID)
     assert_same_result(want, cold)
     assert [entry_tuple(e) for e in warm.entries] == \
