@@ -48,7 +48,8 @@ kernels' launch counts set to 0 just before it and read just after:
   (K2 48 times on the tensor cores, 96 all-to-alls), and in fp32 at 2
   layers the ``ep_a2a`` logits against the ``gather`` logits at 1e-5
   (the config's capacity and the dropless one); ring attention at h2o's
-  layer shape, bit-identical to ``flash_torch``; a full-width
+  layer shape, bit-identical to ``flash_torch``'s plain version (the
+  ring runs it on each rank); a full-width
   h2o_danube_1_8b train step with parameters and moments placed as
   DTensors by ``param_specs``/``zero1_specs`` through
   ``make_train_step(grad_specs=)``, against the plain step (loss rtol
@@ -56,16 +57,18 @@ kernels' launch counts set to 0 just before it and read just after:
   over that step's whole gradient tree, bit-identical to the int8
   round trip; and the launcher ``python -m repro_torch.launch.train``
   at full width in a child process;
-* the training path (the same model): ``fit`` (see below), which
-  launches none of the kernels, as the reference's training path calls
-  no Pallas kernel.
+* the training path (the same model): ``fit`` (see below), whose
+  ``flash_torch`` attention runs the training attention's kernels
+  (``csrc/flash_attention_train.cu``: a forward and a backward call a
+  layer a step) and none of K1-K3, as the reference's training path
+  calls no Pallas kernel.
 
 Around that it
 
 * builds the kernels from the sources in the checkout (``nvcc``,
   sm_90a, one process per source, all started together: K1, K2's
-  tensor-core and scalar variants, K3), with ptxas's registers and
-  spills per kernel;
+  tensor-core and scalar variants, K3, the training attention), with
+  ptxas's registers and spills per kernel;
 * holds every kernel against its plain PyTorch version on the inputs the
   paths gave it (K1 bit-identical to its plain walk version and to the
   numpy reference; K2 within two bf16 ulps through its tensor-core
@@ -77,7 +80,11 @@ Around that it
   scalar kernel; K3 on an unaligned view, d = 2561 and, in bf16, at
   every d_model of the configs), and times kernel, plain version and a
   PyTorch library call there (K3 also beside a same-bytes copy, with
-  each variant's ptxas registers and spills, no spill allowed);
+  each variant's ptxas registers and spills, no spill allowed); and the
+  training attention's forward and backward at h2o's training layer
+  beside their bounds, the plain version and SDPA (the yardstick only),
+  each output no further from the fp32 truth than 1.25 x the plain
+  bf16 version's;
 * checks the model's outputs by the repo's own means: prefill logits
   against the plain ``flash_torch`` attention path (in fp32 at 1e-4 x
   max |logit|; in bf16 the kernel path no further from the fp32 logits
@@ -93,11 +100,11 @@ Around that it
 * profiles the unique events of one full-width pipeline stage with
   ``TorchMeasuredProvider`` on the card;
 * trains: ``fit`` takes 6 AdamW steps of the same h2o_danube_1_8b at full
-  width (bf16, no remat, B=2 x S=4096, ``attn_impl="auto"``, i.e. the
-  plain ``flash_torch`` attention with its blockwise backward: the
-  reference's training path calls no kernel, and K1-K3 are counted to
-  stay at 0 there), gated on finite losses and gradient norms and a
-  first loss within 1 of ln 32000; one step is profiled;
+  width (bf16, no remat, B=2 x S=4096, ``attn_impl="auto"``, i.e.
+  ``flash_torch``, on the card the training attention's kernels,
+  counted at one forward and one backward call a layer a step; K1-K3
+  are counted to stay at 0 there), gated on finite losses and gradient
+  norms and a first loss within 1 of ln 32000; one step is profiled;
 * closes the simulator's loop: the 1M1P1D prediction of that step by
   ``TorchMeasuredProvider`` (and, ungated, by the same provider with the
   reference's one-read epilogue and by ``HopperAnalyticalProvider``)
@@ -157,7 +164,7 @@ BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor cores
 FP32_FLOPS_PER_S = 67e12            # fp32 outside the tensor cores
 
 KERNELS = ("megabatch_scan", "flash_attention", "flash_attention_tc",
-           "rmsnorm")
+           "rmsnorm", "flash_attention_train")
 
 # K2 against its plain version. Both compute in fp32 and differ only in
 # summation order, so a bf16 output may differ by a rounding step: two
@@ -178,6 +185,12 @@ K3_BF16_ULPS = 1
 K3_FP32_TOL = {"atol": 1e-5, "rtol": 1e-5}
 # rows of each case of K3's width sweep (the main shape's 2 x 8192)
 K3_SWEEP_ROWS = 16384
+# the training attention's kernels at h2o's training layer (B, S, H, KH,
+# hd); each of out, dq, dk, dv no further from the fp32 truth than this
+# times the plain bf16 version (tests/test_torch_attn_train.py: the same
+# rounding points, fewer roundings in the kernels, other tiles)
+ATTN_TRAIN_SHAPE = (2, 4096, 32, 8, 80)
+ATTN_TRAIN_MARGIN = 1.25
 # profiler activity types that are work on the device
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -1379,6 +1392,139 @@ def kernel_k2(fa, captured, launches: int, tc_launches: int) -> dict:
     }
 
 
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def kernel_attn_train() -> dict:
+    """The training attention's kernels at h2o's training layer (bf16, q
+    (2, 4096, 32, 80), k and v (2, 4096, 8, 80), causal, window 4096):
+    forward and backward timed beside their bounds by operations, the
+    plain version's times (``_FlashCore``) and
+    ``scaled_dot_product_attention``'s forward and backward (the library
+    yardstick only: the port never calls it); out, dq, dk and dv each no
+    further from the fp32 truth (the plain version on the inputs upcast,
+    TF32 off) than ATTN_TRAIN_MARGIN x the plain bf16 version, as
+    tests/test_torch_attn_train.py holds them."""
+    from repro_torch.kernels import flash_attention_train as fat
+    b, s, h, kh, hd = ATTN_TRAIN_SHAPE
+    window = port_config(MODEL_ARCH).sliding_window
+    q, k, v = seeded_qkv(ATTN_TRAIN_SHAPE, torch.bfloat16, seed=21)
+    dout = torch.randn((b, s, h, hd), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(22)
+                       ).to(torch.bfloat16)
+    pos = torch.arange(s, device="cuda").expand(b, s)
+    check(fat.takes(q, k, v, window),
+          "the training kernels do not take h2o's training layer")
+    log("kernels: the training attention at h2o's training layer")
+    start = counts(counters=TRAIN_COUNTERS)
+    out, lse, kinds = fat.forward(q, k, v, pos, pos, True, window)
+    dq, dk, dv = fat.backward(q, k, v, pos, pos, kinds, out, lse, dout,
+                              True, window)
+    torch.cuda.synchronize()
+    check(counts(start, TRAIN_COUNTERS) == {"fwd": 1, "bwd": 1},
+          "the training kernels' counters did not count one call each")
+    from repro_torch.models.layers import _block_pairs
+    check(kinds.tolist() == _block_pairs(pos, pos, True, window, fat.TILE_Q,
+                                         fat.TILE_KV),
+          "the kernels' pair table != _block_pairs' at their tiles")
+    fwd_ms = timed_ms(lambda: fat.forward(q, k, v, pos, pos, True, window),
+                      reps=20)
+    bwd_ms = timed_ms(lambda: fat.backward(q, k, v, pos, pos, kinds, out,
+                                           lse, dout, True, window),
+                      reps=10)
+
+    def fwd_bwd(fn, q, k, v, dout):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(dout)
+        return [o.detach()] + [t.grad for t in leaves]
+
+    def plain(q, k, v):
+        return plain_flash(q, k, v, pos, True, window)
+
+    with torch.no_grad():
+        plain(q, k, v)
+        plain_fwd_ms = timed_ms(lambda: plain(q, k, v), reps=3)
+    plain_got = fwd_bwd(plain, q, k, v, dout)
+    plain_total_ms = timed_ms(lambda: fwd_bwd(plain, q, k, v, dout), reps=2)
+    truth = fwd_bwd(plain, q.float(), k.float(), v.float(), dout.float())
+    got = [out, dq, dk, dv]
+    errors = {}
+    for name, a, p_, t in zip(("out", "dq", "dk", "dv"), got, plain_got,
+                              truth):
+        errors[name] = {"kernels": rel_l2(a, t), "plain": rel_l2(p_, t)}
+        check(errors[name]["kernels"]
+              <= ATTN_TRAIN_MARGIN * errors[name]["plain"],
+              f"training kernels' {name} is {errors[name]['kernels']} from "
+              f"the fp32 truth, the plain version {errors[name]['plain']}")
+    lse_err = max_abs_diff(lse[:, :, :s], _plain_lse(q, k, v, pos, window))
+    check(lse_err <= 1e-4, f"training kernels' lse is {lse_err} from the "
+                           f"plain version's")
+    del plain_got, truth, got
+
+    def library(q, k, v):
+        o = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+        return o.transpose(1, 2)
+
+    with torch.no_grad():
+        library(q, k, v)
+        library_fwd_ms = timed_ms(lambda: library(q, k, v), reps=10)
+    fwd_bwd(library, q, k, v, dout)
+    library_total_ms = timed_ms(lambda: fwd_bwd(library, q, k, v, dout),
+                                reps=5)
+    pairs = band_pairs(s, s, True, window) * b * h
+    fwd_flops, bwd_flops = 4 * hd * pairs, 8 * hd * pairs
+    fwd_bound = fwd_flops / BF16_FLOPS_PER_S * 1e3
+    bwd_bound = bwd_flops / BF16_FLOPS_PER_S * 1e3
+    log(f"kernels: training attention forward {fwd_ms:.4f} ms (bound "
+        f"{fwd_bound:.4f}), backward {bwd_ms:.4f} ms (bound "
+        f"{bwd_bound:.4f}); plain {plain_fwd_ms:.2f} / "
+        f"{plain_total_ms - plain_fwd_ms:.2f} ms")
+    return {
+        "name": "attention_train", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_train.cu",
+        "replaces": None,
+        "why": "the reference's training attention is plain jnp; the "
+               "port's plain blockwise version runs a dozen fp32 passes "
+               "over every block pair and syncs the host a layer",
+        "shape": {"q": [b, s, h, hd], "k": [b, s, kh, hd], "causal": True,
+                  "window": window},
+        "ms": {"forward": fwd_ms, "backward": bwd_ms},
+        "bound_ms": {"forward": fwd_bound, "backward": bwd_bound},
+        "bound_by": "operations (4 hd and 8 hd flops a valid pair at "
+                    "989 TFLOP/s)",
+        "bound_flops": {"forward": fwd_flops, "backward": bwd_flops},
+        "achieved_tflops": {"forward": fwd_flops / fwd_ms / 1e9,
+                            "backward": bwd_flops / bwd_ms / 1e9},
+        "plain_ms": {"forward": plain_fwd_ms,
+                     "backward": plain_total_ms - plain_fwd_ms},
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True) (yardstick only)",
+        "library_ms": {"forward": library_fwd_ms,
+                       "backward": library_total_ms - library_fwd_ms},
+        "rel_l2_from_fp32": errors, "margin": ATTN_TRAIN_MARGIN,
+        "lse_max_abs_diff_from_plain": lse_err,
+    }
+
+
+def _plain_lse(q, k, v, pos, window):
+    """lse (B, H, S) of ``_flash_fwd_impl`` on the same bf16 inputs."""
+    from repro_torch.models import layers as L
+    s = q.shape[1]
+    bq, bkv = min(512, s), min(1024, k.shape[1])
+    n_rep = q.shape[2] // k.shape[2]
+    pairs = L._block_pairs(pos, pos, True, window, bq, bkv)
+    with torch.no_grad():
+        _, lse = L._flash_fwd_impl(
+            L._heads(q, 1, bq), L._heads(k, n_rep, bkv),
+            L._heads(v, n_rep, bkv), pos, pos, True, window, bq, bkv, pairs)
+    return lse[:, :, :s]
+
+
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """The largest distance between two bf16 tensors in units in the last
     place, counted on their ``uint16`` patterns (sign-magnitude mapped to
@@ -1657,8 +1803,10 @@ def kernel_k3(rn, captured, launches: int) -> dict:
 
 def phase_train() -> dict:
     """``fit`` on full-width h2o_danube_1_8b: bf16, no remat, ``auto``
-    attention (``flash_torch`` at 4096 keys), B=2 x S=4096, 6 steps,
-    seed 0; then one more step of the same shapes under the profiler."""
+    attention (``flash_torch`` at 4096 keys, which runs the training
+    attention's kernels: forward and backward once a layer a step),
+    B=2 x S=4096, 6 steps, seed 0; then one more step of the same shapes
+    under the profiler."""
     from repro_torch.data.pipeline import DataConfig, synth_batch
     from repro_torch.models import layers as L
     from repro_torch.models.api import build_model
@@ -1676,11 +1824,17 @@ def phase_train() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     start = counts()                        # just before the train path
+    attn_start = counts(counters=TRAIN_COUNTERS)
     r = fit(cfg, opts, loop=loop, verbose=False)
     launches = counts(start)
+    attn = counts(attn_start, TRAIN_COUNTERS)
     peak = torch.cuda.max_memory_allocated()
     check(not any(launches.values()),
-          f"the train path launched a kernel: {launches}")
+          f"the train path launched K1-K3: {launches}")
+    want = cfg.n_layers * TRAIN_STEPS
+    check(attn == {"fwd": want, "bwd": want},
+          f"the train path called the training attention's kernels {attn}, "
+          f"expected forward and backward {cfg.n_layers} times a step")
     check(len(r.losses) == TRAIN_STEPS, f"{len(r.losses)} steps done")
     check(all(np.isfinite(r.losses)) and all(np.isfinite(r.grad_norms)),
           f"losses {r.losses} or grad norms {r.grad_norms} not finite")
@@ -1708,7 +1862,8 @@ def phase_train() -> dict:
     return {"phase": "train", "arch": MODEL_ARCH, "layers": cfg.n_layers,
             "d_model": cfg.d_model, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "dtype": "bfloat16", "remat": False, "attn_impl": "auto",
-            "attn_impl_taken": "flash_torch"
+            "attn_impl_taken": "flash_torch (the training attention's "
+                               "kernels)"
             if TRAIN_SEQ > opts.flash_threshold else "naive",
             "steps": TRAIN_STEPS, "seed": 0,
             "step_seconds": r.step_times, "measured_seconds": measured,
@@ -1716,6 +1871,9 @@ def phase_train() -> dict:
             "tokens_per_s": tokens / measured, "losses": r.losses,
             "grad_norm": r.grad_norms, "ln_vocab": ln_v,
             "peak_memory_bytes": peak, "kernel_launches": launches,
+            "attn_train_calls": attn,
+            "attn_train_calls_per_step": {k: n / TRAIN_STEPS
+                                          for k, n in attn.items()},
             "step_profile": profile}
 
 
@@ -2144,12 +2302,17 @@ FAMILIES = (
 #: short names the JSON lines use
 LAUNCH_COUNTERS = {"k1": "k1.launches", "k2": "k2.launches",
                    "k2_tc": "k2.tc_launches", "k3": "k3.launches"}
+#: the training attention's calls (each forward or backward call launches
+#: its kernels once)
+TRAIN_COUNTERS = {"fwd": "attn_train.fwd", "bwd": "attn_train.bwd"}
 
 
-def counts(since=None) -> dict:
-    """The kernels' launches so far, or since the earlier ``since``."""
+def counts(since=None, counters=None) -> dict:
+    """The kernels' launches so far, or since the earlier ``since``: K1-K3
+    (``LAUNCH_COUNTERS``) unless ``counters`` names others."""
     from repro_torch.telemetry import COUNTS
-    now = {k: COUNTS.get(c, 0) for k, c in LAUNCH_COUNTERS.items()}
+    now = {k: COUNTS.get(c, 0)
+           for k, c in (counters or LAUNCH_COUNTERS).items()}
     return now if since is None else {k: now[k] - since[k] for k in now}
 
 
@@ -2708,9 +2871,18 @@ def self_transfer(mesh) -> str:
     return "allowed"
 
 
+def plain_flash(q, k, v, pos, causal, window):
+    """``flash_torch``'s plain blockwise version (``_FlashCore``, what the
+    ring runs on each rank) on the card, whatever the training kernels'
+    dispatch rule would take."""
+    from repro_torch.models import layers as L
+    return L._FlashCore.apply(q, k, v, pos, pos, causal, window,
+                              min(512, q.shape[1]), min(1024, k.shape[1]))
+
+
 def ring_check(mesh) -> dict:
     """Ring attention over the one-rank ``model`` axis at h2o's layer
-    shape against ``attention_flash_torch`` on the same inputs: one
+    shape against ``flash_torch``'s plain version on the same inputs: one
     partial, combined at weight exp(0) = 1, must give the same bits."""
     from repro_torch.models import layers as L
     from repro_torch.parallel.sharding import use_mesh
@@ -2724,7 +2896,7 @@ def ring_check(mesh) -> dict:
             return L.ring_attention(q, k, v, pos, pos, "model", True, window)
 
         def plain():
-            return L.attention_flash_torch(q, k, v, pos, pos, True, window)
+            return plain_flash(q, k, v, pos, True, window)
 
         got, want = ring(), plain()
         same = torch.equal(got.view(torch.int16), want.view(torch.int16))
@@ -3207,16 +3379,20 @@ def finish_dryrun_cells(started) -> list:
 def roofline_check() -> dict:
     """The train phase's step — full-width h2o_danube_1_8b, bf16, no remat,
     ``auto`` attention, B=2 x S=4096, plain tensors (a 1 x 1 mesh places
-    nothing) — traced on fake tensors and run on the card: the traced
-    FLOPs must equal FlopCounterMode's count of the real step, the
-    predicted peak be within ROOFLINE_PEAK_TOL of max_memory_allocated,
-    and the roofline bound be no more than the measured median step."""
+    nothing) — traced on fake tensors and run on the card, both with the
+    training attention's kernels (the trace inside ``traced_kernels``,
+    which counts each kernel call as one op: its inputs and outputs, and
+    its FLOPs by ``roofline.CUSTOM_FLOPS``): the traced FLOPs must equal
+    FlopCounterMode's count of the real step, the predicted peak be
+    within ROOFLINE_PEAK_TOL of max_memory_allocated, and the roofline
+    bound be no more than the measured median step."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import roofline
     from repro_torch.core.hw import H100
     from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import flash_attention_train as fat
     from repro_torch.launch.dryrun import trace_step
     from repro_torch.models import layers as L
     from repro_torch.models.api import build_model
@@ -3238,13 +3414,18 @@ def roofline_check() -> dict:
     step = make_train_step(cfg, opts)
     log("dryrun: the real step under FlopCounterMode")
     # the trace's formulas: torch 2.11's bmm formula refuses bmm.dtype
-    # (the bf16 score products with out_dtype=float32), and its conv
-    # backward formula ignores groups
+    # (the bf16 score products with out_dtype=float32), its conv
+    # backward formula ignores groups, and the training attention's
+    # kernels are the port's own operators
     counter = FlopCounterMode(display=False,
                               custom_mapping=roofline.CUSTOM_FLOPS)
+    start = counts(counters=TRAIN_COUNTERS)
     with counter:
         step(params, state, batch)
     real_flops = counter.get_total_flops()
+    check(counts(start, TRAIN_COUNTERS) == {"fwd": cfg.n_layers,
+                                            "bwd": cfg.n_layers},
+          "the step under FlopCounterMode did not run the training kernels")
     del counter
     free_card()
     torch.cuda.reset_peak_memory_stats()
@@ -3266,8 +3447,9 @@ def roofline_check() -> dict:
     log("dryrun: the same step traced on fake tensors")
     t0 = time.perf_counter()
     shape = ShapeConfig("roofline_check", TRAIN_SEQ, TRAIN_BATCH, "train")
-    stats, tracer, peak, args = trace_step(cfg, shape, opts, None,
-                                           device=dev)
+    with fat.traced_kernels():
+        stats, tracer, peak, args = trace_step(cfg, shape, opts, None,
+                                               device=dev)
     trace_s = time.perf_counter() - t0
     rep = roofline.analyze_trace(MODEL_ARCH, shape.name, "1x1", 1, stats,
                                  0.0, H100, peak_bytes=peak)
@@ -3299,9 +3481,9 @@ def roofline_check() -> dict:
 
 def ring_backward_check(mesh) -> dict:
     """The ring's backward over the one-rank ``model`` axis at h2o's layer
-    0 (S = 8192, window 4096) against ``flash_torch``'s on the same
-    inputs and output weights: fp32 within RING_GRAD_TOL (TF32 off), and
-    bf16's largest difference in ulps."""
+    0 (S = 8192, window 4096) against ``flash_torch``'s plain version's
+    (``plain_flash``) on the same inputs and output weights: fp32 within
+    RING_GRAD_TOL (TF32 off), and bf16's largest difference in ulps."""
     from repro_torch.models import layers as L
     from repro_torch.parallel.sharding import use_mesh
     b, s, h, kh, hd = RING_SHAPE
@@ -3325,8 +3507,8 @@ def ring_backward_check(mesh) -> dict:
                 q, k, v, pos, pos, "model", True, window))
             torch.cuda.synchronize()
             ring_s = time.perf_counter() - t0
-        want = grads(lambda q, k, v: L.attention_flash_torch(
-            q, k, v, pos, pos, True, window))
+        want = grads(lambda q, k, v: plain_flash(q, k, v, pos, True,
+                                                  window))
         row = {"ring_seconds": ring_s,
                "max_abs_diff": {g: max_abs_diff(a.float(), w.float())
                                 for g, a, w in zip("qkv", got, want)},
@@ -3376,6 +3558,7 @@ def main() -> int:
     import repro_torch.core as port
     import repro_torch.store as store_mod
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_train as fat
     from repro_torch.kernels import megabatch_scan as scan
     from repro_torch.kernels import rmsnorm as rn
 
@@ -3387,7 +3570,7 @@ def main() -> int:
     env = phase_env()
     emit(env)
     log("build: compiling the kernels")
-    emit(phase_build((scan, fa, rn)))
+    emit(phase_build((scan, fa, rn, fat)))
     log("kernels: K1 on random programs")
     random_rows = check_random_programs(scan, device)
 
@@ -3413,6 +3596,8 @@ def main() -> int:
     k3 = kernel_k3(rn, captured, model_launches["rmsnorm"])
     del captured
     torch.cuda.empty_cache()
+    k_train = kernel_attn_train()
+    free_card()
 
     with one_rank_mesh() as mesh:
         families_line, t5_attention, ep_row = phase_families(fa, rn, scan,
@@ -3438,12 +3623,14 @@ def main() -> int:
     free_card()
 
     train_line = phase_train()
+    k_train["launches_on_the_training_path_per_step"] = \
+        train_line["attn_train_calls_per_step"]
     loop_line = phase_loop_check(port, train_line["measured_seconds"])
     check_line = phase_train_check()
     free_card()
     dryrun_line = phase_dryrun(ring_row)
 
-    emit({"kernels": [k1, k2, k3]})
+    emit({"kernels": [k1, k2, k3, k_train]})
     emit(profile_line)
     emit(model_line)
     emit(serve_line)

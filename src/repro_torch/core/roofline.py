@@ -55,6 +55,7 @@ from torch.utils.flop_counter import (conv_flop_count, flop_registry,
                                       shape_wrapper)
 
 from repro_torch.core.hw import H100, ChipSpec
+from repro_torch.kernels import flash_attention_train as attn_train
 
 _DTYPE_BYTES = {
     "f64": 8, "f32": 4, "f16": 2, "bf16": 2, "f8e4m3fn": 1, "f8e5m2": 1,
@@ -560,10 +561,14 @@ def conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride,
     return flops
 
 
-#: the formulas that replace torch's, as ``FlopCounterMode``'s
+#: the formulas that replace torch's, and those of the port's own
+#: operators (the training attention's kernels), as ``FlopCounterMode``'s
 #: ``custom_mapping`` takes them
 CUSTOM_FLOPS = {torch.ops.aten.bmm: bmm_flops,
-                torch.ops.aten.convolution_backward: conv_backward_flops}
+                torch.ops.aten.convolution_backward: conv_backward_flops,
+                torch.ops.repro_torch.attn_train_fwd: attn_train.forward_flops,
+                torch.ops.repro_torch.attn_train_bwd:
+                    attn_train.backward_flops}
 #: torch's FLOP formulas by op, with :data:`CUSTOM_FLOPS` in their place
 FLOP_FORMULAS = {**flop_registry, **{op: shape_wrapper(f)
                                      for op, f in CUSTOM_FLOPS.items()}}

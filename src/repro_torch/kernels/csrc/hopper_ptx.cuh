@@ -1,10 +1,11 @@
-// PTX wrappers for Hopper (sm_90a) kernels: mbarriers, TMA tile loads,
-// warpgroup matrix multiply (wgmma) and register reallocation.
+// PTX wrappers for Hopper (sm_90a) kernels: mbarriers, TMA tile and bulk
+// loads, warpgroup matrix multiply (wgmma) and register reallocation.
 //
-// Shared by the port's tensor-core kernels (flash_attention_tc.cu). Each
-// wrapper is one PTX instruction, or one instruction in a polling loop;
-// the layouts they assume are stated where they are used. Addresses in
-// shared memory are 32-bit shared-window addresses (`smem_addr`).
+// Shared by the port's tensor-core kernels (flash_attention_tc.cu,
+// flash_attention_train.cu). Each wrapper is one PTX instruction, or one
+// instruction in a polling loop; the layouts they assume are stated where
+// they are used. Addresses in shared memory are 32-bit shared-window
+// addresses (`smem_addr`).
 
 #pragma once
 
@@ -87,6 +88,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global memory at `src` into shared memory
+// at `dst` (both 16-byte aligned, `bytes` a multiple of 16); they count
+// towards the barrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -186,6 +199,30 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64x64, fp32) (+)= A(64x16, smem, K-major) * B(16x64, smem, K-major);
+// D is zeroed first when scale_d == 0.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

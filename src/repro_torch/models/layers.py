@@ -5,10 +5,13 @@ Attention has three implementations selectable via
 ``ModelOptions.attn_impl``:
 
   * ``naive``       — materializes (B,H,S,S) scores. Reference semantics.
-  * ``flash_torch`` — blockwise online softmax in plain PyTorch (the
-                      reference's ``flash_jnp``) with a blockwise-recompute
-                      backward: O(block_q x block_kv) live scores in both
-                      directions.
+  * ``flash_torch`` — blockwise online softmax (the reference's
+                      ``flash_jnp``) with a blockwise-recompute backward:
+                      O(block_q x block_kv) live scores in both
+                      directions. Plain PyTorch, except that real bf16
+                      CUDA tensors the training kernels take
+                      (``kernels.flash_attention_train.takes``) run them,
+                      forward and backward, by a rule on dtype and shape.
   * ``cuda``        — the hand-written Hopper kernel behind
                       ``repro_torch.kernels.ops.flash_attention`` (the
                       reference's ``pallas``); on CPU tensors its plain
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch import telemetry
+from repro_torch.kernels import flash_attention_train as attn_kernels
 from repro_torch.kernels.ref import rmsnorm_ref
 from repro_torch.parallel import sharding
 
@@ -476,11 +480,43 @@ class _FlashCore(torch.autograd.Function):
                     None, None)
 
 
+class _FlashKernels(torch.autograd.Function):
+    """:class:`_FlashCore`'s algorithm on the card's hand-written kernels
+    (:mod:`repro_torch.kernels.flash_attention_train`): the forward saves
+    q, k, v, out, lse and the pair table it made from the positions on
+    the device; the backward recomputes p tile by tile from lse. The kernels
+    tile by 64 query rows and 128 keys and take the GQA sum of dk, dv in
+    fp32, where the plain version adds bf16 heads one by one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window):
+        out, lse, kinds = attn_kernels.forward(q, k, v, q_pos, k_pos,
+                                               causal, window)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, kinds, out, lse)
+        ctx.masks = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        with telemetry.span("attention.bwd"):
+            q, k, v, q_pos, k_pos, kinds, out, lse = ctx.saved_tensors
+            dq, dk, dv = attn_kernels.backward(q, k, v, q_pos, k_pos, kinds,
+                                               out, lse, dout, *ctx.masks)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention_flash_torch(q, k, v, q_pos, k_pos, causal=True, window=None,
                           block_q=512, block_kv=1024):
-    """Blockwise (FlashAttention-style) online-softmax attention in plain
-    PyTorch with a flash BACKWARD (blockwise recompute from lse):
-    O(block_q x block_kv) live scores in both directions."""
+    """Blockwise (FlashAttention-style) online-softmax attention with a
+    flash BACKWARD (blockwise recompute from lse): O(block_q x block_kv)
+    live scores in both directions. Inputs the training kernels take
+    (:func:`~repro_torch.kernels.flash_attention_train.takes`: real bf16
+    CUDA tensors with a head_dim the kernels have) run them
+    (:class:`_FlashKernels`, their own tiles); every other input runs the
+    plain PyTorch version (:class:`_FlashCore`): CPU, fake and fp32
+    tensors, other head dims."""
+    if attn_kernels.takes(q, k, v, window):
+        return _FlashKernels.apply(q, k, v, q_pos, k_pos, causal, window)
     return _FlashCore.apply(q, k, v, q_pos, k_pos, causal, window,
                             min(block_q, q.shape[1]),
                             min(block_kv, k.shape[1]))

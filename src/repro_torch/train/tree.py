@@ -33,18 +33,25 @@ def _is_leaf(node: Any) -> bool:
     return not isinstance(node, (Mapping, tuple, list))
 
 
+# The walks below are module functions, not nested ones: a nested
+# function that calls itself is a reference cycle (the function and its
+# own closure cell), which keeps what its closure holds, every leaf it
+# collected, alive until the cyclic collector runs: on the card, the
+# previous step's parameters, gradients and optimizer state.
+
+def _walk(node: Any, prefix: Tuple[str, ...],
+          out: List[Tuple[str, Any]]) -> None:
+    if _is_leaf(node):
+        out.append(("/".join(prefix), node))
+        return
+    for part, child in _children(node):
+        _walk(child, prefix + (part,), out)
+
+
 def leaf_paths(tree: Any) -> List[Tuple[str, Any]]:
     """(path, leaf) for every leaf, in pytree order."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, prefix):
-        if _is_leaf(node):
-            out.append(("/".join(prefix), node))
-            return
-        for part, child in _children(node):
-            walk(child, prefix + (part,))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 
@@ -53,20 +60,19 @@ def leaves(tree: Any) -> List[Any]:
     return [leaf for _, leaf in leaf_paths(tree)]
 
 
+def _build(node: Any, it: Iterator) -> Any:
+    if _is_leaf(node):
+        return next(it)
+    if isinstance(node, Mapping):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    kids = [_build(c, it) for _, c in _children(node)]
+    return type(node)(*kids) if _is_namedtuple(node) else type(node)(kids)
+
+
 def unflatten_like(tree: Any, new_leaves) -> Any:
     """``tree``'s structure with its leaves replaced, in pytree order."""
     it: Iterator = iter(new_leaves)
-
-    def build(node):
-        if _is_leaf(node):
-            return next(it)
-        if isinstance(node, Mapping):
-            return {k: build(node[k]) for k in sorted(node)}
-        kids = [build(c) for _, c in _children(node)]
-        return type(node)(*kids) if _is_namedtuple(node) \
-            else type(node)(kids)
-
-    out = build(tree)
+    out = _build(tree, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has")
     return out

@@ -432,6 +432,35 @@ def test_layers_are_unbound_once_per_call():
     assert wq.grad is not None and bool(wq.grad[1].abs().sum() > 0)
 
 
+@pytest.mark.parametrize("impl", ["naive", "flash_torch"])
+def test_a_step_frees_the_previous_state_without_the_collector(impl):
+    """Once the caller lets go of a step's inputs, its parameters, its
+    optimizer state and its gradients go at once, with the cyclic
+    collector off: no reference cycle holds them into the next step
+    (on the card, a second generation of weights and moments held
+    through the next forward)."""
+    import gc
+    import weakref
+    from repro_torch.train.tree import leaves
+    _, cfg = configs("h2o_danube_1_8b")
+    opts = port_opts(impl)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                            opts)
+    state = opt.init(params)
+    batch = to_port(lm_batch(cfg.vocab, 2, 32))
+    step = step_mod.make_train_step(cfg, opts)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        held = [weakref.ref(t) for t in
+                leaves(params) + leaves(state.mu) + leaves(state.nu)]
+        params, state, _ = step(params, state, batch)
+        assert held and not any(r() is not None for r in held)
+    finally:
+        if was:
+            gc.enable()
+
+
 @pytest.mark.parametrize("accum", [1, 2])
 def test_train_step_matches_the_reference(accum):
     """The whole step against the reference's: loss, grad norm, lr, and
