@@ -12,6 +12,15 @@ the limits of the comparison that decides ``correct``,
 ``metrics/<metric>.py`` or, where that file is absent, by the reader of
 the name's first part (``metrics/mfu.py`` reads ``mfu.train`` and
 ``mfu.prefill``, by the cell's kind). Nothing here names a cell.
+
+The program's configuration is its registered ``ArchConfig`` with the
+file's numbers put in (:func:`port_config`). A file may state three
+keys beyond them: ``head_dim`` and ``qk_norm``, passed under those
+names, and ``moe`` with its ``capacity_factor``, ``None`` (routing
+without a capacity) included. Where ``ArchConfig`` has no field of a
+key the file states, the port does not take that key yet, and
+:func:`port_config` raises a ``ValueError`` that names it rather than
+run a model other than the file's.
 """
 from __future__ import annotations
 
@@ -100,18 +109,43 @@ def metric_reader(name: str):
     return mod.read
 
 
-def port_config(cfg: dict):
-    """The port's ``ArchConfig`` with the configuration file's numbers."""
-    from repro_torch.configs.base import MoEConfig, get_config
+#: keys a configuration file may state beyond the registered config's
+#: numbers, each passed to the port under its own name
+OPTIONAL_KEYS = ("head_dim", "qk_norm")
+
+
+def port_fields(cfg: dict) -> dict:
+    """The ``ArchConfig`` fields that the configuration file sets, by
+    name."""
+    from repro_torch.configs.base import MoEConfig
     moe = cfg.get("moe")
-    return dataclasses.replace(
-        get_config(cfg["arch"]), n_layers=cfg["n_layers"],
-        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
-        n_kv_heads=cfg["n_kv_heads"], d_ff=cfg["d_ff"], vocab=cfg["vocab"],
+    fields = dict(
+        n_layers=cfg["n_layers"], d_model=cfg["d_model"],
+        n_heads=cfg["n_heads"], n_kv_heads=cfg["n_kv_heads"],
+        d_ff=cfg["d_ff"], vocab=cfg["vocab"],
         sliding_window=cfg.get("sliding_window"),
         rope_theta=cfg["rope_theta"], qkv_bias=cfg.get("qkv_bias", False),
         tie_embeddings=cfg.get("tie_embeddings", False),
         moe=MoEConfig(**moe) if moe else None)
+    fields.update({k: cfg[k] for k in OPTIONAL_KEYS if k in cfg})
+    return fields
+
+
+def port_config(cfg: dict, base=None):
+    """The port's ``ArchConfig`` (or ``base``, a config of the same
+    kind) with the configuration file's numbers (:func:`port_fields`);
+    a ``ValueError`` where the config has no field for one of them."""
+    if base is None:
+        from repro_torch.configs.base import get_config
+        base = get_config(cfg["arch"])
+    fields = port_fields(cfg)
+    have = {f.name for f in dataclasses.fields(base)}
+    for key in fields:
+        if key not in have:
+            raise ValueError(
+                f"the configuration file states {key!r}, which the port's "
+                f"{type(base).__name__} does not take yet")
+    return dataclasses.replace(base, **fields)
 
 
 def model_options(cfg: dict, kind: str):

@@ -5,11 +5,25 @@ Pre-norm blocks: RMSNorm (Zhang & Sennrich 2019), grouped-query
 attention (Ainslie et al. 2023) with rotary position embeddings (Su et
 al. 2021, rotating the two halves of each head) under a causal and
 optional sliding-window mask, then a SwiGLU FFN (Shazeer 2020) or a
-mixture of SwiGLU experts routed as the configuration file's
-``routing`` states; a final RMSNorm and an untied head; the mean
-cross-entropy of next-token labels; AdamW (Loshchilov & Hutter 2019)
-with a global-norm clip and a warm-up then cosine rate, each parameter
-stored back in the configuration's dtype after its update.
+mixture of SwiGLU experts routed as the configuration file's ``moe``
+states; a final RMSNorm and an untied head; the mean cross-entropy of
+next-token labels; AdamW (Loshchilov & Hutter 2019) with a global-norm
+clip and a warm-up then cosine rate, each parameter stored back in the
+configuration's dtype after its update.
+
+Three keys of the file are optional, and a file that leaves them out
+gets the block above unchanged:
+
+* ``head_dim``: the width of each query and KV head, where it is not
+  ``d_model / n_heads`` (Qwen3-30B-A3B: 128 over a hidden size of 2048
+  and 32 heads; its ``config.json``);
+* ``qk_norm``: an RMSNorm over each head's ``head_dim`` values of q and
+  of k, after the projections and before RoPE, at ``rms_norm_eps`` and
+  with a learned scale of ``head_dim`` values that the heads share
+  (``ln_q``, ``ln_k``; Qwen3 technical report, arXiv:2505.09388);
+* ``moe.capacity_factor`` null: routing without a capacity, each token
+  run on every one of its ``top_k`` experts (Qwen3's released MoE
+  block; "dropless", Gale et al. 2022, arXiv:2211.15841).
 
 Everything is computed in float32 (TF32 off) from the configuration
 file's numbers and the weights the benchmark made; nothing of the
@@ -142,7 +156,10 @@ def swiglu(x, w_gate, w_up, w_down, num: Numerics = FP32):
 
 
 def capacity(n_tokens: int, moe: dict) -> int:
-    """Slots an expert, as the configuration's routing states."""
+    """Slots an expert, as the configuration's routing states; with a
+    ``capacity_factor`` of ``None``, every token: nothing is dropped."""
+    if moe["capacity_factor"] is None:
+        return n_tokens
     c = int(n_tokens * moe["top_k"] * moe["capacity_factor"]
             / moe["n_experts"])
     return min(n_tokens, max(8, (c + 7) // 8 * 8))
@@ -188,14 +205,17 @@ def moe_ffn(x: torch.Tensor, p: dict, moe: dict, num: Numerics = FP32):
 def block(cfg: dict, p: dict, x: torch.Tensor, num: Numerics = FP32,
           rows: Optional[int] = None):
     """One pre-norm layer on x (B, S, d) -> (x, the MoE's aux loss)."""
-    eps, hd = cfg["rms_norm_eps"], cfg["d_model"] // cfg["n_heads"]
+    eps = cfg["rms_norm_eps"]
+    hd = cfg.get("head_dim") or cfg["d_model"] // cfg["n_heads"]
     b, s, _ = x.shape
     h = rmsnorm(x, p["ln"], eps)
     q, k, v = (num.mm(h, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.get("qkv_bias"):
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q.reshape(b, s, -1, hd), cfg["rope_theta"])
-    k = rope(k.reshape(b, s, -1, hd), cfg["rope_theta"])
+    q, k = q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd)
+    if cfg.get("qk_norm"):
+        q, k = rmsnorm(q, p["ln_q"], eps), rmsnorm(k, p["ln_k"], eps)
+    q, k = rope(q, cfg["rope_theta"]), rope(k, cfg["rope_theta"])
     o = attention(q, k, v.reshape(b, s, -1, hd), cfg.get("sliding_window"),
                   num, rows)
     x = x + num.mm(o.reshape(b, s, -1), p["wo"])

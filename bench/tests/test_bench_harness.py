@@ -1,4 +1,5 @@
 """The manifest, the files it names, and the shape of a run's result."""
+import dataclasses
 import importlib
 import json
 import re
@@ -143,8 +144,21 @@ def test_weights_are_the_ports_parameter_layout(where, name):
     theirs = {p: tuple(s.shape) for p, s in weights.paths(port)}
     assert ours == theirs
     if where == "configs":
+        # the file's numbers are the registered config's, the dry run's,
+        # except where it states a head width, q/k norms or a capacity
         from repro_torch.configs.base import get_config
-        assert arch == get_config(name)  # the file's numbers are the port's
+        registered = get_config(name)
+        for key, value in harness.port_fields(cfg).items():
+            if key in harness.OPTIONAL_KEYS:
+                assert getattr(arch, key) == cfg[key], key
+            elif key == "moe" and value is not None:
+                assert arch.moe.capacity_factor == cfg["moe"][
+                    "capacity_factor"]
+                assert dataclasses.replace(
+                    arch.moe, capacity_factor=registered.moe.capacity_factor
+                ) == registered.moe
+            else:
+                assert getattr(arch, key) == getattr(registered, key), key
 
 
 def test_a_cycle_of_lengths_gives_one_batch_a_length_from_the_seed():

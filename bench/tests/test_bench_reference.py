@@ -68,6 +68,131 @@ def test_moe_drops_past_the_capacity():
     assert int(counts.max()) > decoder.capacity(24, MOE)
 
 
+DROPLESS = dict(MOE, capacity_factor=None)
+
+
+def every_pair(x2d, p, moe):
+    """Each token's gated SwiGLU of every one of its top_k experts, with
+    no capacity: every expert computed on every token, then gathered."""
+    _, top, gates = decoder.route(x2d, p["router"], moe)
+    h = torch.einsum("td,edf->tef", x2d, p["w_gate"])
+    u = torch.einsum("td,edf->tef", x2d, p["w_up"])
+    y = torch.einsum("tef,efd->ted", torch.nn.functional.silu(h) * u,
+                     p["w_down"])
+    chosen = torch.gather(y, 1, top[:, :, None].expand(-1, -1, y.shape[-1]))
+    return (chosen * gates[:, :, None]).sum(1)
+
+
+def oversubscribed(tokens=24, seed=4):
+    """Weights and rows where one router column sends every token to
+    expert 0: a constant feature that only column 0 reads, strongly."""
+    p = moe_weights(seed=seed)
+    p["router"][0] = 0.0
+    p["router"][0, 0] = 20.0
+    x = torch.randn(1, tokens, 16, generator=torch.Generator().manual_seed(
+        seed))
+    x[..., 0] = 5.0
+    return p, x
+
+
+@pytest.mark.parametrize("case", ["random", "oversubscribed"])
+def test_dropless_routing_keeps_every_token_expert_pair(case):
+    p, x = oversubscribed()
+    if case == "random":
+        p = moe_weights()
+        x = torch.randn(1, 24, 16, generator=torch.Generator().manual_seed(1))
+    assert decoder.capacity(24, DROPLESS) == 24
+    got, _ = decoder.moe_ffn(x, p, DROPLESS)
+    torch.testing.assert_close(got[0], every_pair(x[0], p, DROPLESS),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tokens", [5, 24, 200])
+def test_dropless_is_a_factor_that_never_binds_bit_for_bit(tokens):
+    p, x = oversubscribed(tokens)
+    factor = MOE["n_experts"] / MOE["top_k"] * (1 + 1e-6)
+    never = dict(MOE, capacity_factor=factor)
+    assert decoder.capacity(tokens, never) == tokens
+    assert torch.equal(decoder.moe_ffn(x, p, DROPLESS)[0],
+                       decoder.moe_ffn(x, p, never)[0])
+
+
+def test_dropless_differs_from_a_capacity_where_an_expert_is_oversubscribed():
+    p, x = oversubscribed()
+    _, top, _ = decoder.route(x[0], p["router"], MOE)
+    assert bool((top[:, 0] == 0).all())
+    capped = dict(MOE, capacity_factor=1.25)
+    assert decoder.capacity(24, capped) < 24
+    dropless, _ = decoder.moe_ffn(x, p, DROPLESS)
+    assert not torch.allclose(dropless, decoder.moe_ffn(x, p, capped)[0],
+                              rtol=1e-3, atol=1e-3)
+
+
+def tiny_qwen3(seed=6):
+    """The tiny Qwen3 fixture in float32, its q/k norm scales drawn away
+    from ones."""
+    from bench import harness
+    cfg = dict(harness.read_json(harness.BENCH / "tests" / "fixtures"
+                                 / "configs" / "tiny_qwen3.json"),
+               dtype="float32", init_std=0.2)
+    w = weights.make(cfg, seed, "cpu")
+    g = torch.Generator().manual_seed(seed)
+    for name in ("ln_q", "ln_k"):
+        w["attn_layers"][name] = 1 + 0.5 * torch.randn(
+            w["attn_layers"][name].shape, generator=g)
+    return cfg, w
+
+
+def block_by_hand(cfg, p, x):
+    """One layer with the q/k norm written out: each head's values of q
+    and of k over their root mean square, times the shared scale, head
+    by head, then RoPE."""
+    eps, hd, b, s = cfg["rms_norm_eps"], cfg["head_dim"], *x.shape[:2]
+    h = decoder.rmsnorm(x, p["ln"], eps)
+    q = (h @ p["wq"]).reshape(b, s, cfg["n_heads"], hd)
+    k = (h @ p["wk"]).reshape(b, s, cfg["n_kv_heads"], hd)
+    v = (h @ p["wv"]).reshape(b, s, cfg["n_kv_heads"], hd)
+
+    def per_head(t, scale):
+        out = torch.empty_like(t)
+        for head in range(t.shape[2]):
+            u = t[:, :, head]
+            out[:, :, head] = u / torch.sqrt(u.pow(2).mean(-1, keepdim=True)
+                                             + eps) * scale
+        return out
+    q = decoder.rope(per_head(q, p["ln_q"]), cfg["rope_theta"])
+    k = decoder.rope(per_head(k, p["ln_k"]), cfg["rope_theta"])
+    o = decoder.attention(q, k, v, None)
+    x = x + o.reshape(b, s, -1) @ p["wo"]
+    f = p["ffn"]
+    y, _ = decoder.moe_ffn(decoder.rmsnorm(x, f["ln"], eps), f, cfg["moe"])
+    return x + y
+
+
+def test_qk_norm_is_a_per_head_rmsnorm_before_rope():
+    cfg, w = tiny_qwen3()
+    x = torch.randn(2, 12, 64, generator=torch.Generator().manual_seed(7))
+    for i in range(cfg["n_layers"]):
+        p = decoder.layer_of(w["attn_layers"], i)
+        got, _ = decoder.block(cfg, p, x)
+        torch.testing.assert_close(got, block_by_hand(cfg, p, x), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_qk_norm_scales_other_than_ones_change_the_logits():
+    cfg, w = tiny_qwen3()
+    tokens = traffic.pool({"kind": "prefill", "batch": 1, "seq_len": 16,
+                           "pool": 1}, cfg, 8, "cpu")[0]["tokens"]
+    ones = dict(w, attn_layers=dict(
+        w["attn_layers"], ln_q=torch.ones_like(w["attn_layers"]["ln_q"]),
+        ln_k=torch.ones_like(w["attn_layers"]["ln_k"])))
+    scaled = decoder.forward(cfg, w, tokens)
+    plain = decoder.forward(cfg, ones, tokens)
+    assert not torch.allclose(scaled, plain, rtol=1e-3, atol=1e-3)
+    unnormed = decoder.forward(dict(cfg, qk_norm=False), ones, tokens)
+    assert not torch.allclose(plain, unnormed, rtol=1e-3, atol=1e-3)
+
+
 @pytest.mark.parametrize("window", [None, 3])
 @pytest.mark.parametrize("rows", [None, 5])
 def test_attention_equals_a_loop_over_pairs(window, rows):
@@ -131,7 +256,24 @@ def test_layerwise_backward_equals_autograd_of_the_whole(moe):
     cfg = tiny_dense()
     if moe:
         cfg["moe"] = dict(MOE, d_ff_expert=8, capacity_factor=2.0)
+    layerwise_equals_autograd(cfg)
+
+
+def test_layerwise_backward_equals_autograd_with_the_optional_keys():
+    """Heads wider than d_model / n_heads, q/k norms with scales away
+    from ones, and dropless routing."""
+    cfg = dict(tiny_dense(), head_dim=16, qk_norm=True,
+               moe=dict(MOE, d_ff_expert=8, capacity_factor=None))
+    layerwise_equals_autograd(cfg, scales=True)
+
+
+def layerwise_equals_autograd(cfg, scales=False):
     w = weights.make(cfg, 3, "cpu")
+    if scales:
+        g = torch.Generator().manual_seed(3)
+        for name in ("ln_q", "ln_k"):
+            w["attn_layers"][name] = 1 + 0.5 * torch.randn(
+                w["attn_layers"][name].shape, generator=g)
     batch = traffic.pool({"kind": "train", "batch": 2, "seq_len": 10,
                           "pool": 1}, cfg, 3, "cpu")[0]
     loss, grads = decoder.loss_and_grads(cfg, w, batch)

@@ -7,6 +7,11 @@ leaf is drawn by one call from a generator of its own, seeded from the
 run's seed and the leaf's path, so every layer gets its own draw and any
 leaf can be made again alone. Matrices are normal(0, ``init_std``) in the
 configuration's dtype, norm scales ones, biases zeros.
+
+A file's optional keys add to the layout and move no leaf: ``head_dim``
+sets the width of each query and KV head (else ``d_model // n_heads``),
+and ``qk_norm`` adds the per-head q and k norm scales ``ln_q`` and
+``ln_k``, of ``head_dim`` values each, to every layer.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ import zlib
 from typing import Dict, Iterator, Tuple
 
 import torch
+
+from bench import work
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -25,12 +32,14 @@ def dtype_of(cfg: dict) -> torch.dtype:
 
 def layer_shapes(cfg: dict) -> Dict[str, object]:
     """One layer's leaves and their shapes (the FFN under ``ffn``)."""
-    d, hd = cfg["d_model"], cfg["d_model"] // cfg["n_heads"]
+    d, hd = cfg["d_model"], work.head_dim(cfg)
     q, kv = cfg["n_heads"] * hd, cfg["n_kv_heads"] * hd
     attn: Dict[str, object] = {"ln": (d,), "wq": (d, q), "wk": (d, kv),
                                "wv": (d, kv), "wo": (q, d)}
     if cfg.get("qkv_bias"):
         attn.update(bq=(q,), bk=(kv,), bv=(kv,))
+    if cfg.get("qk_norm"):
+        attn.update(ln_q=(hd,), ln_k=(hd,))
     moe = cfg.get("moe")
     if moe:
         e, f = moe["n_experts"], moe["d_ff_expert"]

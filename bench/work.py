@@ -19,7 +19,9 @@ PEAK_HBM_BYTES = 3.35e12
 
 
 def head_dim(cfg: dict) -> int:
-    return cfg["d_model"] // cfg["n_heads"]
+    """The width of each query and KV head: the file's ``head_dim``,
+    else ``d_model // n_heads``."""
+    return cfg.get("head_dim") or cfg["d_model"] // cfg["n_heads"]
 
 
 def attended_pairs(s_q: int, s_k: int, causal: bool,
@@ -77,6 +79,31 @@ def matmul_params(cfg: dict, active: bool = False) -> int:
         ffn = 3 * d * cfg["d_ff"]
     head = 0 if cfg.get("tie_embeddings") else d * cfg["vocab"]
     return cfg["n_layers"] * (attn + ffn) + head
+
+
+def moe_flops(cfg: dict, batch: int, seq: int) -> float:
+    """FLOPs of one MoE layer over ``batch`` sequences of ``seq`` tokens,
+    T tokens in all: the router's product and each token's ``top_k``
+    SwiGLU experts (three products of d × f each), 2 FLOPs a
+    multiply-add, so 2·T·(d·E + k·3·d·f). A per-layer reader of the MoE
+    span divides this, with :func:`moe_bytes`, by the span's device
+    time (:func:`roofline_seconds`)."""
+    moe, d, t = cfg["moe"], cfg["d_model"], batch * seq
+    return float(2 * t * (d * moe["n_experts"]
+                          + moe["top_k"] * 3 * d * moe["d_ff_expert"]))
+
+
+def moe_bytes(cfg: dict, batch: int, seq: int, itemsize: int = 2) -> float:
+    """Bytes of one MoE layer over T = ``batch`` · ``seq`` tokens, each
+    read or written once: the weights of the ``min(E, T·k)`` experts
+    that T tokens can reach, the router's, and the T rows of d in and
+    out. A per-layer reader of the MoE span divides this, with
+    :func:`moe_flops`, by the span's device time."""
+    moe, d, t = cfg["moe"], cfg["d_model"], batch * seq
+    experts = min(moe["n_experts"], t * moe["top_k"])
+    n = experts * 3 * d * moe["d_ff_expert"] + d * moe["n_experts"] \
+        + 2 * t * d
+    return float(n * itemsize)
 
 
 def train_step_flops(cfg: dict, batch: int, seq: int) -> float:
